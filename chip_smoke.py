@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root; one card, nvcc
 
-Phase 0  builds the four CUDA kernels from ``src/repro_torch/csrc`` (one
+Phase 0  builds the five CUDA kernels from ``src/repro_torch/csrc`` (one
          nvcc per source, all started together) and prints the card's name
          and power limit.
 Phase 1  holds every kernel against its plain torch version on the card at
@@ -11,7 +11,8 @@ Phase 1  holds every kernel against its plain torch version on the card at
          plus ragged bf16 / unaligned uint8 tensors) — results must be
          bit-identical — and times the kernel, the plain version, the
          least time the card could take (the bound), and for patch_scatter
-         the one PyTorch call that computes the same function.
+         the one PyTorch call that computes the same function (patch_scatter,
+         block_diff).
 Phase 2  the main path: a ``KishuSession`` on a ``dir://`` store commits a
          SmolLM-360M-shaped fine-tuning state (fp32 params + AdamW m and v,
          870 tensors, 4.34 GB, random from a seeded CUDA generator), runs an
@@ -21,6 +22,15 @@ Phase 2  the main path: a ``KishuSession`` on a ``dir://`` store commits a
          launch counts are read from this phase only.
 Phase 3  the same small cells through a CUDA session and a CPU session (the
          plain versions) must write identical stores.
+Phase 4  the trainer path: ``ManagedTrainingSession`` trains SmolLM-360M at
+         full width and depth (bf16 params, fp32 AdamW moments, 3.62 GB,
+         random from a seed) on a ``dir://`` store with 1 MiB chunks —
+         attach, train, set_lr, train, evaluate, checkout back and forward,
+         and ``resume`` in a fresh session — and verifies every checkout,
+         the resume and the LR-only commit exactly with
+         ``delta.exact_dirty_indices`` (the block_diff kernel).  Its
+         launch counts are read from this phase, from attach to the resume's
+         verification.
 
 Output: per-phase lines, one JSON line of kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  The full record goes to
@@ -30,6 +40,7 @@ repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -55,6 +66,13 @@ CODEC_OPS_PER_WORD = 5 * 3 + 2
 N_LAYERS, D_MODEL, N_HEADS, N_KV, HEAD_DIM, D_FF, VOCAB = \
     32, 960, 15, 5, 64, 2560, 49152
 TOP_LAYERS = range(28, 32)           # finetune_top updates these
+# kernels each path must launch: the commit -> checkout loop of Phase 2,
+# and the trainer of Phase 4, whose dense steps dirty every chunk (so its
+# commits take the full path, no codec) and whose checkouts load in full
+# (no scatter)
+COMMIT_PATH_KERNELS = ("chunk_hash", "delta_pack", "delta_codec",
+                       "patch_scatter")
+TRAINER_PATH_KERNELS = ("chunk_hash", "delta_pack", "block_diff")
 # reinit_vocab_slice runs on two slices of 4915 rows: one that starts on a
 # 4 MiB boundary (row 32768 = 120 MiB), whose zeroed moments the sampled
 # codec probe accepts, and one that starts mid-chunk (row 40000), where the
@@ -132,6 +150,8 @@ def max_abs_err(torch, a, b) -> float:
 
 def phase1(torch, dev) -> list:
     from repro_torch.core.hashing import MASK32, chunk_hashes_plain
+    from repro_torch.kernels.block_diff.ops import (block_diff_cuda,
+                                                    block_diff_plain)
     from repro_torch.kernels.chunk_hash.ops import chunk_hash_cuda
     from repro_torch.kernels.delta_codec import host as codec_host
     from repro_torch.kernels.delta_codec.ops import (codec_encode_cuda,
@@ -283,6 +303,44 @@ def phase1(torch, dev) -> list:
         "library_ms": time_ms(torch, lambda: words_view.index_copy_(
             0, lib_idx, kbuf), 50),
         "shape": f"{k_rows} chunks of 1 MiB into fp32 [{VOCAB}, {D_MODEL}]"})
+    # -- block_diff: the embedding before and after the slice re-init (the
+    #    shape Phase 4 verifies), a stacked bf16 weight, ragged / unaligned
+    kf = block_diff_cuda(u8, u8b, CB)
+    pf = block_diff_plain(u8, u8b, CB)
+    check(torch.equal(kf, pf) and int(kf.sum()) == kcount,
+          f"block_diff != plain ({int(kf.sum())} vs {kcount} dirty)")
+    errs = [max_abs_err(torch, kf, pf)]
+    wq = torch.empty((N_LAYERS, D_MODEL, N_HEADS, HEAD_DIM), device=dev,
+                     dtype=torch.bfloat16).normal_(generator=g)
+    wq2 = wq.clone()
+    wq2[5, 100, 3] += 1
+    wq2[-1, -1, -1, -1] += 1
+    odd2 = odd_bf16.clone()
+    odd2[-1] += 1
+    raw2 = raw.clone()
+    raw2[::1_000_000] ^= 1
+    for x, y in ((wq, wq2), (odd_bf16, odd2), (raw, raw2)):
+        xu, yu = x.reshape(-1).view(torch.uint8), y.reshape(-1).view(
+            torch.uint8)
+        for cb in (1 << 16, CB):
+            kx, px = block_diff_cuda(xu, yu, cb), block_diff_plain(xu, yu, cb)
+            check(torch.equal(kx, px) and int(kx.sum()) > 0,
+                  f"block_diff != plain on {tuple(x.shape)} {x.dtype}, "
+                  f"{cb}-byte chunks")
+            errs.append(max_abs_err(torch, kx, px))
+    b_ms, b_by = bound(2 * nbytes + 4 * n, 2 * words)
+    rows_out.append({
+        "name": "block_diff", "route": "cuda",
+        "source": "src/repro_torch/csrc/block_diff.cu",
+        "replaces": "src/repro/kernels/block_diff/kernel.py:31",
+        "max_abs_err": max(errs),
+        "ms": time_ms(torch, lambda: block_diff_cuda(u8, u8b, CB), 50),
+        "plain_ms": time_ms(torch, lambda: block_diff_plain(u8, u8b, CB), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(torch, lambda: (u8 != u8b).view(n, -1).any(1),
+                              20),
+        "shape": f"fp32 [{VOCAB}, {D_MODEL}] vs its re-init, {kcount} of {n} "
+                 f"chunks of 1 MiB differ"})
     for r in rows_out:
         print(f"phase1 {r['name']}: bit-identical to plain; {r['shape']}; "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
@@ -336,8 +394,9 @@ def reinit_vocab_slice(ns, lo: int, hi: int) -> None:
     ns["opt/v/embed"][lo:hi].zero_()
 
 
-def snapshot(torch, sess) -> dict:
-    return {n: sess.ns[n].clone() for n in sess.ns.names()}
+def tensor_snapshot(torch, ns) -> dict:
+    return {n: ns[n].clone() for n in ns.names()
+            if isinstance(ns[n], torch.Tensor)}
 
 
 def same_state(torch, sess, snap) -> bool:
@@ -386,7 +445,7 @@ def phase2(torch, dev, workdir: Path) -> dict:
                          "bytes_written": w.bytes_written,
                          "chunks_written": w.chunks_written}
         del state
-        snap0 = snapshot(torch, sess)
+        snap0 = tensor_snapshot(torch, sess.ns)
 
         t0 = time.perf_counter()
         c_ft = sess.run("finetune_top", step=1)
@@ -422,7 +481,7 @@ def phase2(torch, dev, workdir: Path) -> dict:
         check(rec["reinit_vocab_slice"]["chunks_encoded"] > 0,
               f"aligned vocab slice encoded no chunk: "
               f"{rec['reinit_vocab_slice']}")
-        snap2 = snapshot(torch, sess)
+        snap2 = tensor_snapshot(torch, sess.ns)
 
         for label, target, snap in (("checkout_back", c_attach, snap0),
                                      ("checkout_forward", c_vocab, snap2)):
@@ -455,7 +514,7 @@ def phase2(torch, dev, workdir: Path) -> dict:
         print(f"phase2 {key}: {rec[f'{key}_s']:.3f} s; {rec[key]}; "
               f"stages {rec[f'{key}_stages']}", flush=True)
     print(f"phase2 kernels: {json.dumps(rec['launches'])}", flush=True)
-    missing = [k for k, v in rec["launches"].items() if v <= 0]
+    missing = [k for k in COMMIT_PATH_KERNELS if rec["launches"][k] <= 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
     return rec
 
@@ -512,6 +571,171 @@ def phase3(torch) -> dict:
     return {"chunks": len(out["cpu"][0]), "frames": frames}
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the trainer path (SmolLM-360M, full size)
+# ---------------------------------------------------------------------------
+
+def verify_exact(torch, ns, snap, label: str) -> float:
+    """Every tensor of ``ns`` bit-identical to ``snap``, by the block_diff
+    kernel (``delta.exact_dirty_indices``).  Returns the seconds taken."""
+    from repro_torch.core.delta import exact_dirty_indices
+    t0 = time.perf_counter()
+    names = sorted(n for n in ns.names() if isinstance(ns[n], torch.Tensor))
+    check(names == sorted(snap), f"{label}: tensor names differ")
+    dirty = {n: exact_dirty_indices(ns[n], snap[n], CB) for n in names}
+    bad = {n: d[:4] for n, d in dirty.items() if d}
+    check(not bad, f"{label}: not bit-identical: {bad}")
+    return time.perf_counter() - t0
+
+
+def phase4(torch, dev, workdir: Path) -> dict:
+    from repro_torch.core import open_store
+    from repro_torch.kernels import _lib
+    from repro_torch.models.config import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import ManagedTrainingSession, resume
+
+    cfg = get_config("smollm-360m")            # full width and depth
+    opt = AdamWConfig(lr=1e-3)                  # the launcher's default lr
+    url = f"dir://{workdir}/train_cas"
+    kw = dict(global_batch=8, seq_len=128, chunk_bytes=CB)
+    embed, head = "state/params/embed", "state/params/lm_head"
+    rec: dict = {"arch": cfg.name, **kw, "steps_per_phase": 2}
+    sess = ManagedTrainingSession(cfg, opt, open_store(url), **kw)
+    check(sess.device.type == "cuda", "the trainer did not default to cuda")
+    sess.kishu.obs.tracer.enabled = True
+
+    def timed(label: str, fn):
+        sess.kishu.obs.tracer.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rec[f"{label}_s"] = time.perf_counter() - t0
+        rec[f"{label}_stages"] = sess.kishu.obs.tracer.stage_totals()
+        return out
+
+    def commit_rec(label: str) -> None:
+        r = sess.kishu.last_run
+        w = r.write
+        rec[label] = {"covs_updated": r.covs_updated,
+                      "bytes_serialized": w.bytes_serialized,
+                      "bytes_dev2host": w.bytes_dev2host,
+                      "bytes_written": w.bytes_written,
+                      "chunks_written": w.chunks_written,
+                      "covs_packed": w.covs_packed,
+                      "loss": sess.ns.get("metrics/last_loss")}
+
+    def checkout_rec(label: str, st) -> None:
+        rec[label] = {"covs_loaded": st.covs_loaded,
+                      "covs_patched": st.covs_patched,
+                      "bytes_loaded": st.bytes_loaded,
+                      "bytes_cached": st.bytes_cached,
+                      "bytes_host2dev": st.bytes_host2dev}
+
+    _lib.reset_launches()
+    try:
+        c0 = timed("attach", lambda: sess.attach(seed=0))
+        commit_rec("attach")
+        params = [sess.ns[n] for n in sess.ns.names()
+                  if n.startswith("state/params/") and n != head]
+        n_params = sum(t.numel() for t in params)
+        tensors = {id(sess.ns[n]): sess.ns[n] for n in sess.ns.names()
+                   if isinstance(sess.ns[n], torch.Tensor)}
+        rec["params"] = n_params
+        rec["state_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in tensors.values())
+        rec["tensors"] = len(tensors)
+        check(n_params == 361_821_120, f"{n_params} parameters")
+        check(all(t.dtype == torch.bfloat16 for t in params)
+              and sess.ns["state/opt/mu/embed"].dtype == torch.float32,
+              "params must be bf16 and moments fp32")
+        check(sess.ns[embed] is sess.ns[head], "lm_head is not embed")
+        print(f"phase4 state: {cfg.name}, {n_params} bf16 params + fp32 "
+              f"moments, {rec['tensors']} tensors, {rec['state_bytes']} "
+              f"bytes on {dev}", flush=True)
+
+        c1 = timed("train_1", lambda: sess.train(2))
+        commit_rec("train_1")
+        loss1 = rec["train_1"]["loss"]
+        s1 = tensor_snapshot(torch, sess.ns)
+
+        c2 = timed("set_lr", lambda: sess.set_lr(opt.lr / 2))
+        commit_rec("set_lr")
+        rec["verify_set_lr_s"] = verify_exact(torch, sess.ns, s1, "set_lr")
+        idx1 = sess.kishu.graph.nodes[c1].state_index
+        idx2 = sess.kishu.graph.nodes[c2].state_index
+        moved = sorted(k for k in idx2 if idx2[k] != idx1.get(k))
+        check(sess.kishu.last_run.covs_updated == 1
+              and moved == ["hparams/lr"]
+              and rec["set_lr"]["bytes_written"] < 200,
+              f"the LR-only commit wrote more than hparams/lr: {moved}, "
+              f"{rec['set_lr']}")
+
+        c3 = timed("train_2", lambda: sess.train(2))
+        commit_rec("train_2")
+        loss3 = rec["train_2"]["loss"]
+        check(loss3 == loss3 and loss1 == loss1 and loss3 < loss1,
+              f"loss not finite and falling: {loss1} then {loss3}")
+        s3 = tensor_snapshot(torch, sess.ns)
+        c4 = timed("evaluate", lambda: sess.evaluate(1))
+        commit_rec("evaluate")
+        rec["eval_loss"] = sess.eval_loss()
+
+        for label, target, snap in (("checkout_back", c1, s1),
+                                     ("checkout_forward", c3, s3)):
+            st = timed(label, lambda t=target: sess.checkout(t))
+            checkout_rec(label, st)
+            rec[f"verify_{label}_s"] = verify_exact(torch, sess.ns, snap,
+                                                   label)
+            check(sess.ns[embed] is sess.ns[head],
+                  f"{label}: lm_head is not embed")
+        rec["commits"] = [c0, c1, c2, c3, c4]
+    finally:
+        sess.close()
+    del s1
+    # the resumed session traces from its first load (KISHU_TRACE=1)
+    prev = os.environ.get("KISHU_TRACE")
+    os.environ["KISHU_TRACE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        r = resume(cfg, opt, open_store(url), **kw)
+        torch.cuda.synchronize()
+        rec["resume_s"] = time.perf_counter() - t0
+    finally:
+        if prev is None:
+            os.environ.pop("KISHU_TRACE", None)
+        else:
+            os.environ["KISHU_TRACE"] = prev
+    rec["resume_stages"] = r.kishu.obs.tracer.stage_totals()
+    try:
+        check(r.kishu.head == c3, f"resumed at {r.kishu.head}, not {c3}")
+        rec["verify_resume_s"] = verify_exact(torch, r.ns, s3, "resume")
+        check(r.ns[embed] is r.ns[head], "resume: lm_head is not embed")
+        rec["launches"] = _lib.launches()
+    finally:
+        r.close()
+    del s3
+
+    for key in ("attach", "train_1", "set_lr", "train_2", "evaluate"):
+        print(f"phase4 {key}: {rec[f'{key}_s']:.3f} s; {rec[key]}; "
+              f"stages {rec[f'{key}_stages']}", flush=True)
+    for key in ("checkout_back", "checkout_forward"):
+        print(f"phase4 {key}: {rec[f'{key}_s']:.3f} s, every tensor "
+              f"bit-identical (block_diff, {rec[f'verify_{key}_s']:.3f} s); "
+              f"{rec[key]}; stages {rec[f'{key}_stages']}", flush=True)
+    print(f"phase4 resume: {rec['resume_s']:.3f} s, every tensor "
+          f"bit-identical (block_diff, {rec['verify_resume_s']:.3f} s); "
+          f"stages {rec['resume_stages']}", flush=True)
+    print(f"phase4 set_lr: no tensor changed (block_diff, "
+          f"{rec['verify_set_lr_s']:.3f} s); eval loss {rec['eval_loss']}",
+          flush=True)
+    print(f"phase4 kernels: {json.dumps(rec['launches'])}", flush=True)
+    missing = [k for k in TRAINER_PATH_KERNELS if rec["launches"][k] <= 0]
+    check(not missing, f"kernels never launched on the trainer path: "
+                       f"{missing}")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -558,8 +782,20 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
     record["phase3"] = phase3(torch)
+    torch.cuda.empty_cache()
+    workdir = Path(tempfile.mkdtemp(prefix="kishu_smoke_train_"))
+    try:
+        t0 = time.perf_counter()
+        record["phase4"] = phase4(torch, dev, workdir)
+        record["phase4_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    # launches: each kernel's count on the path that first needed it —
+    # Phase 2 (commit -> checkout) for the four, Phase 4 (trainer) for
+    # block_diff
     for row in kernels:
-        row["launches"] = record["phase2"]["launches"][row["name"]]
+        phase = "phase4" if row["name"] == "block_diff" else "phase2"
+        row["launches"] = record[phase]["launches"][row["name"]]
     record["kernels"] = kernels
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

@@ -3,7 +3,9 @@
 The same incremental commit/checkout system over torch tensors: manifests,
 chunk keys, KZC1 frames and txn docs are byte-identical to the JAX
 package's, so a store written by either package checks out in the other.
-The main path's four TPU kernels are hand-written CUDA kernels for Hopper
+The training loop with Kishu attached (``train.loop``) runs the dense
+decoder of ``models`` and resumes either package's store.  Five of the
+JAX package's TPU kernels are hand-written CUDA kernels for Hopper
 (``csrc/``), each with a plain torch version for CPU tensors.
 
 This package imports torch and never jax, and nothing of ``repro``: it

@@ -149,7 +149,10 @@ def _try_delta_manifest(base, det_hex: List[str], prev_manifest,
         # stored as-is (put_stored); keys stay logical-byte either way.
         stats.covs_packed += 1
         enc0, skip0 = pack.codec_chunks_encoded, pack.codec_chunks_skipped
-        if put_stored is not None:
+        # bool chunks are stored raw, as the JAX package stores them (its
+        # device path cannot bitcast bool arrays, so they never reach its
+        # codec): the stored bytes stay identical across the two packages
+        if put_stored is not None and meta["dtype"] != "bool":
             for i, cdata, frame in pack.read_chunks_encoded(dirty):
                 stats.bytes_serialized += len(cdata)
                 _store(i, cdata, frame)

@@ -9,8 +9,8 @@ Both hot paths move *only the state difference* (the paper's headline):
 
 This module holds the pieces both need: dirty-index computation from
 detection hashes, run coalescing, zero-copy/device-sliced range readers,
-the fused on-device delta pack (writer side) and the fused in-place scatter
-(loader side).
+the fused on-device delta pack (writer side), the fused in-place scatter
+(loader side), and the exact chunk compare that verifies either.
 
 Range extraction never materializes the full buffer: numpy bases are read
 through a zero-copy ``memoryview``; tensors are sliced where they lie, so
@@ -232,3 +232,39 @@ def patch_device_chunks(base: Any, segs: Sequence[Tuple[int, bytes]],
     if o is not None:
         o.registry.counter("kishu_h2d_bytes_total").inc(moved)
     return moved
+
+
+# ---------------------------------------------------------------------------
+# exact chunk compare (hash-free cross-check)
+# ---------------------------------------------------------------------------
+
+def _host_bytes(x: Any) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return tensor_bytes_u8(x).cpu().numpy()
+    return np.ascontiguousarray(np.asarray(x)).reshape(-1).view(np.uint8)
+
+
+def exact_dirty_indices(a: Any, b: Any, chunk_bytes: int) -> List[int]:
+    """Chunk indices where ``a`` and ``b`` differ bitwise — the exact
+    (collision-free) answer the detection hashes approximate; used by tests
+    and paranoid verification to cross-check hash-planned deltas and
+    restored state.
+
+    Two tensors go through ``kernels/block_diff``: on a card the CUDA
+    kernel compares both storages in place (a kernel that fails to build or
+    launch raises), on the CPU its plain version runs.  Anything else
+    (numpy arrays, a tensor against an array) is compared byte for byte on
+    the host."""
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        from repro_torch.kernels.block_diff.ops import dirty_chunks
+        return [int(i) for i in dirty_chunks(a, b, chunk_bytes)]
+    ba, bb = _host_bytes(a), _host_bytes(b)
+    if ba.size != bb.size:
+        raise ValueError("exact_dirty_indices: size mismatch")
+    n_chunks = max(-(-ba.size // chunk_bytes), 1) if ba.size else 0
+    out = []
+    for i in range(n_chunks):
+        lo, hi = i * chunk_bytes, min((i + 1) * chunk_bytes, ba.size)
+        if not np.array_equal(ba[lo:hi], bb[lo:hi]):
+            out.append(i)
+    return out

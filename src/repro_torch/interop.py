@@ -3,7 +3,9 @@
 The JAX package's state becomes a tree of numpy arrays through
 ``np.asarray``; :func:`to_torch` turns such a tree into torch tensors on a
 device and :func:`to_numpy` turns tensors back, so both packages can
-commit the same state.  The device is ``cuda`` unless the caller names
+commit the same state.  :func:`train_state_to_torch` does so for the JAX
+package's TrainState, so the port's trainer can start from exactly the
+JAX package's initialised parameters.  The device is ``cuda`` unless the caller names
 another, as for ``KishuSession``: with no card and no explicit ``"cpu"``
 the call raises.  Dtypes numpy spells through ``ml_dtypes`` (bf16, fp8)
 cross as raw bytes, never through a numpy cast.
@@ -58,3 +60,30 @@ def to_numpy(tree: Any) -> Any:
     if isinstance(tree, torch.Tensor):
         return tensor_to_array(tree)
     return tree
+
+
+_TRAIN_STATE_KEYS = {"params", "opt", "step", "rng"}
+_OPT_KEYS = {"mu", "nu", "count"}
+
+
+def train_state_to_torch(state: Any, device: Optional[Device] = None
+                         ) -> Any:
+    """The JAX package's TrainState as a nested dict of numpy arrays
+    (``np.asarray`` of every leaf of ``repro.train.step.init_train_state``
+    or of a trained state) -> the port's TrainState on ``device``.
+
+    Leaf names, the stacked ``[n_units]`` axis, shapes and dtypes are kept,
+    and every leaf crosses as its raw bytes (bf16 through ``ml_dtypes`` as
+    ``torch.bfloat16``, ``rng`` as uint32), so the port then computes from
+    exactly the same state."""
+    if not isinstance(state, dict) or set(state) != _TRAIN_STATE_KEYS \
+            or not isinstance(state["opt"], dict) \
+            or set(state["opt"]) != _OPT_KEYS:
+        raise ValueError("not a TrainState: want keys params/opt/step/rng "
+                         "with opt = mu/nu/count")
+    out = to_torch(state, device)
+    bad = [k for k in ("step", "rng") if not isinstance(out[k],
+                                                        torch.Tensor)]
+    if bad:
+        raise ValueError(f"TrainState leaves {bad} are not arrays")
+    return out

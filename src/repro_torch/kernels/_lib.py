@@ -27,7 +27,8 @@ from typing import Dict, List, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("chunk_hash", "delta_pack", "delta_codec", "patch_scatter")
+KERNELS = ("chunk_hash", "delta_pack", "delta_codec", "patch_scatter",
+           "block_diff")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,6 +43,7 @@ _SIGNATURES: Dict[str, Tuple[str, List]] = {
     "kishu_codec_emit": ("delta_codec", [_P, _LL, _I, _P, _P, _P, _P]),
     "kishu_patch_scatter": ("patch_scatter",
                             [_P, _LL, _LL, _I, _P, _LL, _P, _P]),
+    "kishu_block_diff": ("block_diff", [_P, _P, _LL, _LL, _I, _P, _P]),
 }
 
 _lock = threading.Lock()

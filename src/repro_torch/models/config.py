@@ -1,0 +1,209 @@
+"""Architecture configuration system (a copy of the JAX package's).
+
+One frozen dataclass describes every architecture; the LM in ``lm.py``
+interprets it.  Configs are pure data.  The port's ``lm.py`` runs the dense
+family (GQA, optional qk-norm, SwiGLU, tied or untied unembed) and raises
+``NotImplementedError`` for the rest; ``configs`` registers only the
+architectures the port can run.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2/V3)."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 16
+    top_k: int = 2
+    d_ff_expert: int = 0          # expert hidden size (0 -> use cfg.d_ff)
+    n_shared_experts: int = 0     # always-on shared experts (DeepSeek)
+    capacity_factor: float = 1.25
+    every_k_layers: int = 1       # MoE on layers where (idx % every_k == k-1)
+    n_dense_layers: int = 0       # first N layers stay dense (DeepSeek: 3)
+    router_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD parameters."""
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    chunk_size: int = 256
+    n_groups: int = 1
+    conv_width: int = 4
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                   # dense | ssm | hybrid | moe | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0             # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    rope_type: str = "standard"   # standard | mrope | none
+    rope_theta: float = 10_000.0
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)  # t/h/w split of head_dim/2
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # Hybrid interleave: repeating unit of layer kinds, e.g. ("attn",) + ("ssm",)*7.
+    hybrid_pattern: Optional[Tuple[str, ...]] = None
+    enc_dec: bool = False         # whisper: encoder + decoder w/ cross-attention
+    n_encoder_layers: int = 0     # enc-dec only (0 -> n_layers)
+    frontend: Optional[str] = None  # "audio" | "vision" | None (stub modality)
+    mtp: bool = False             # multi-token-prediction extra block (DeepSeek-V3)
+    dtype: str = "bfloat16"
+    # Embedding tables are padded up to a multiple of this so the vocab dim is
+    # always TP-shardable; the loss/sampler mask positions >= vocab_size.
+    vocab_pad_multiple: int = 256
+    # Source provenance, for the config files' docstrings.
+    source: str = ""
+
+    # ---- derived ----
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long_500k shape (SSM/hybrid families)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer kind sequence, length n_layers (decoder side for enc-dec)."""
+        if self.hybrid_pattern:
+            unit = self.hybrid_pattern
+            reps = self.n_layers // len(unit)
+            assert reps * len(unit) == self.n_layers, (
+                f"{self.name}: n_layers={self.n_layers} not a multiple of "
+                f"hybrid unit {len(unit)}")
+            return unit * reps
+        if self.family == "ssm":
+            return ("ssm",) * self.n_layers
+        return ("attn",) * self.n_layers
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+    # ---- parameter counting (for 6ND roofline terms) ----
+    def param_counts(self) -> dict:
+        """Analytic parameter counts: {'total': N, 'active': N_active}.
+
+        ``active`` counts MoE experts at top_k (+shared) instead of n_experts,
+        which is what 6*N_active*D model-FLOPs uses.
+        """
+        d, hd = self.d_model, self.resolved_head_dim
+        nq, nkv = self.n_heads, self.n_kv_heads
+        total = active = 0
+
+        def attn_params() -> int:
+            if self.mla is not None:
+                m = self.mla
+                qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+                p = d * m.q_lora_rank + m.q_lora_rank * nq * qk_hd        # q down/up
+                p += d * (m.kv_lora_rank + m.qk_rope_head_dim)             # kv down
+                p += m.kv_lora_rank * nq * (m.qk_nope_head_dim + m.v_head_dim)
+                p += nq * m.v_head_dim * d                                 # o proj
+                return p
+            return d * nq * hd + 2 * d * nkv * hd + nq * hd * d
+
+        def mlp_params(ff: int) -> int:
+            return 3 * d * ff                                              # gate,up,down
+
+        def ssm_params() -> int:
+            s = self.ssm or SSMConfig()
+            d_in = s.expand * d
+            nh = d_in // s.head_dim
+            p = d * (2 * d_in + 2 * s.n_groups * s.d_state + nh)           # in_proj
+            p += s.conv_width * (d_in + 2 * s.n_groups * s.d_state)        # conv
+            p += 2 * nh                                                    # A_log, D
+            p += d_in * d                                                  # out_proj
+            return p
+
+        kinds = self.layer_kinds
+        moe = self.moe
+        for i, kind in enumerate(kinds):
+            if kind == "attn":
+                total += attn_params(); active += attn_params()
+            else:
+                total += ssm_params(); active += ssm_params()
+            # per-layer FFN (attn layers in hybrids also carry FFN; ssm layers in
+            # pure-ssm archs do not).
+            if self.family == "ssm":
+                continue
+            if moe is not None and i >= moe.n_dense_layers and \
+                    (i % moe.every_k_layers == moe.every_k_layers - 1):
+                ff = moe.d_ff_expert or self.d_ff
+                total += moe.n_experts * mlp_params(ff)
+                active += moe.top_k * mlp_params(ff)
+                total += moe.n_shared_experts * mlp_params(ff)
+                active += moe.n_shared_experts * mlp_params(ff)
+                total += d * moe.n_experts                                  # router
+                active += d * moe.n_experts
+            else:
+                total += mlp_params(self.d_ff); active += mlp_params(self.d_ff)
+        # norms (2/layer + final)
+        total += (2 * len(kinds) + 1) * d; active += (2 * len(kinds) + 1) * d
+        # embeddings (+ untied head)
+        emb = self.vocab_size * d
+        total += emb; active += emb
+        if not self.tie_embeddings:
+            total += emb; active += emb
+        if self.enc_dec:
+            n_enc = self.n_encoder_layers or self.n_layers
+            enc = n_enc * (attn_params() + mlp_params(self.d_ff) + 2 * d)
+            # decoder cross-attention blocks
+            dec_x = len(kinds) * (attn_params() + d)
+            total += enc + dec_x; active += enc + dec_x
+        return {"total": total, "active": active}
+
+
+_REGISTRY: dict = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ArchConfig:
+    # configs package registers on import
+    from repro_torch import configs as _  # noqa: F401
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def list_configs() -> list:
+    from repro_torch import configs as _  # noqa: F401
+    return sorted(_REGISTRY)

@@ -1,0 +1,204 @@
+"""Core neural layers of the dense decoder: RMSNorm, RoPE, GQA attention and
+the gated MLP, as plain functions on tensors (the port of the JAX package's
+``models/layers.py``, dense subset).  Parameters are nested dicts of
+tensors with the JAX package's names, shapes and layouts.
+
+Conventions
+-----------
+- activations: [batch, seq, d_model] unless noted
+- attention tensors: [batch, seq, heads, head_dim]
+- every product accumulates in float32 and is cast back to the activation
+  dtype where the JAX package casts (``preferred_element_type=float32``):
+  :func:`einsum_f32` upcasts its operands, so a bf16 product is exact in
+  float32 before the one rounding, on every device.
+- initialisers draw from a seeded ``torch.Generator`` on the target device.
+  ``lead`` prepends the stacked-unit axis: the JAX package vmaps one unit's
+  init over ``n_units`` keys, so every per-layer leaf has a leading
+  ``[n_units]`` axis, and the port keeps that layout.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ArchConfig
+
+Shape = Sequence[int]
+
+
+def einsum_f32(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``einsum`` with float32 operands and result (the JAX package's
+    ``preferred_element_type=jnp.float32`` on bf16 or f32 inputs)."""
+    return torch.einsum(eq, *[o.float() for o in ops])
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP Queue A 10: the "
+        f"port runs the dense GQA decoder only)")
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+def _dense_init(gen: torch.Generator, shape: Shape, in_axis_size: int,
+                dtype: torch.dtype, lead: Shape = ()) -> torch.Tensor:
+    scale = 1.0 / np.sqrt(max(in_axis_size, 1))
+    out = torch.empty((*lead, *shape), dtype=torch.float32,
+                      device=gen.device)
+    return out.uniform_(-scale, scale, generator=gen).to(dtype)
+
+
+def dense_param(gen: torch.Generator, d_in: int, d_out, dtype: torch.dtype,
+                lead: Shape = ()) -> torch.Tensor:
+    shape = (d_in, d_out) if isinstance(d_out, int) else (d_in, *d_out)
+    return _dense_init(gen, shape, d_in, dtype, lead)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype: torch.dtype, device, lead: Shape = ()
+                 ) -> dict:
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """Standard rotary embedding (half-split rotation, float32 angles).
+    x: [B,S,H,hd]; positions: [B,S] (int)."""
+    hd = x.shape[-1]
+    freqs = torch.tensor(rope_frequencies(hd, theta), dtype=torch.float32,
+                         device=x.device)
+    ang = positions[..., None].float() * freqs                  # [B,S,hd/2]
+    cos = torch.cos(ang)[:, :, None, :]                         # [B,S,1,hd/2]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention core
+# ---------------------------------------------------------------------------
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B,S,Hkv,hd] -> [B,S,Hkv*n_rep,hd] by head-group broadcast."""
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d) \
+        .reshape(b, s, h * n_rep, d)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, q_offset: int = 0,
+                   softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Scaled dot-product attention with GQA broadcast.
+
+    q: [B,Sq,Hq,hd]  k,v: [B,Skv,Hkv,hd(v)]  -> [B,Sq,Hq,hd_v]
+    ``q_offset``: absolute position of q[0].  Masked logits are the finite
+    -1e30, as in the JAX package, not -inf.
+    """
+    sq, hq, hd = q.shape[1], q.shape[2], q.shape[3]
+    n_rep = hq // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scale = softmax_scale if softmax_scale is not None else 1.0 / np.sqrt(hd)
+    logits = einsum_f32("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        logits = torch.where((qpos >= kpos)[None, None], logits,
+                             torch.tensor(-1e30, dtype=torch.float32,
+                                          device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return einsum_f32("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+def gqa_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+             lead: Shape = ()) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    p = {
+        "wq": dense_param(gen, d, (cfg.n_heads, hd), dtype, lead),
+        "wk": dense_param(gen, d, (cfg.n_kv_heads, hd), dtype, lead),
+        "wv": dense_param(gen, d, (cfg.n_kv_heads, hd), dtype, lead),
+        "wo": _dense_init(gen, (cfg.n_heads, hd, d), cfg.n_heads * hd, dtype,
+                          lead),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, dtype, gen.device, lead)
+        p["k_norm"] = rmsnorm_init(hd, dtype, gen.device, lead)
+    return p
+
+
+def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q = einsum_f32("bsd,dhk->bshk", x, p["wq"]).to(x.dtype)
+    k = einsum_f32("bsd,dhk->bshk", x, p["wk"]).to(x.dtype)
+    v = einsum_f32("bsd,dhk->bshk", x, p["wv"]).to(x.dtype)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if cfg.rope_type == "standard":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope_type != "none":
+        raise not_ported(f"rope_type={cfg.rope_type!r} (M-RoPE)")
+    return q, k, v
+
+
+def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, causal: bool = True
+                ) -> torch.Tensor:
+    """Full self-attention (train / prefill). Returns [B,S,d]."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    out = attention_core(q, k, v, causal=causal)
+    return einsum_f32("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# gated MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype: torch.dtype,
+             lead: Shape = ()) -> dict:
+    return {
+        "w_gate": dense_param(gen, d, d_ff, dtype, lead),
+        "w_up": dense_param(gen, d, d_ff, dtype, lead),
+        "w_down": dense_param(gen, d_ff, d, dtype, lead),
+    }
+
+
+def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
+    g = einsum_f32("bsd,df->bsf", x, p["w_gate"])
+    u = einsum_f32("bsd,df->bsf", x, p["w_up"])
+    h = (F.silu(g) * u).to(x.dtype)
+    return einsum_f32("bsf,fd->bsd", h, p["w_down"]).to(x.dtype)

@@ -1,0 +1,225 @@
+"""The dense decoder LM over stacked per-unit parameters (the port of the
+JAX package's ``models/lm.py``, dense subset).
+
+Layers are grouped into *stages* of repeating units as in the JAX package,
+and each stage's parameters are stacked along a leading ``[n_units]`` axis
+— the same leaf names, shapes and dtypes, so the Kishu store records the
+same tensors.  Where the JAX package scans over units, the port runs a
+Python loop over ``unbind(0)`` of each stacked leaf (one stacking op in the
+backward pass).
+
+Only the dense family runs: standard RoPE, GQA, optional per-head qk-norm,
+SwiGLU MLP, RMSNorm and the tied or untied unembed.  MLA, MoE, Mamba/SSD,
+hybrid stacks, enc-dec, M-RoPE, frontends and MTP raise
+``NotImplementedError``; decode caches are not ported.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.core.serialize import torch_dtype
+from repro_torch.models import layers
+from repro_torch.models.config import ArchConfig
+
+
+# ---------------------------------------------------------------------------
+# layer specs and stages
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LayerSpec:
+    kind: str          # "attn" | "ssm"
+    ffn: str           # "dense" | "moe" | "none"
+    cross: bool = False  # decoder cross-attention (enc-dec)
+
+
+@dataclass(frozen=True)
+class StageSpec:
+    unit: Tuple[LayerSpec, ...]
+    n_units: int
+
+
+def layer_specs(cfg: ArchConfig, *, decoder: bool = True) -> List[LayerSpec]:
+    kinds = cfg.layer_kinds
+    specs = []
+    for i, kind in enumerate(kinds):
+        if cfg.family == "ssm":
+            ffn = "none"
+        elif cfg.moe is not None and i >= cfg.moe.n_dense_layers and \
+                (i % cfg.moe.every_k_layers == cfg.moe.every_k_layers - 1):
+            ffn = "moe"
+        else:
+            ffn = "dense"
+        specs.append(LayerSpec(kind, ffn, cross=cfg.enc_dec and decoder))
+    return specs
+
+
+def _min_period(specs: List[LayerSpec]) -> int:
+    n = len(specs)
+    for u in range(1, n + 1):
+        if n % u == 0 and all(specs[i] == specs[i % u] for i in range(n)):
+            return u
+    return n
+
+
+def build_stages(cfg: ArchConfig, *, decoder: bool = True) -> List[StageSpec]:
+    """Split the layer stack into (prefix) + (periodic) stages."""
+    specs = layer_specs(cfg, decoder=decoder)
+    prefix = cfg.moe.n_dense_layers if cfg.moe else 0
+    stages: List[StageSpec] = []
+    if prefix:
+        head = specs[:prefix]
+        u = _min_period(head)
+        stages.append(StageSpec(tuple(head[:u]), len(head) // u))
+        specs = specs[prefix:]
+    if specs:
+        u = _min_period(specs)
+        stages.append(StageSpec(tuple(specs[:u]), len(specs) // u))
+    return stages
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for any feature of ``cfg`` outside the ported dense family."""
+    for present, what in (
+            (cfg.mla is not None, "MLA attention"),
+            (cfg.moe is not None, "MoE"),
+            (cfg.family in ("ssm", "hybrid") or cfg.ssm is not None
+             or cfg.hybrid_pattern, "Mamba/SSD and hybrid stacks"),
+            (cfg.enc_dec, "enc-dec / cross-attention"),
+            (cfg.rope_type != "standard",
+             f"rope_type={cfg.rope_type!r} (M-RoPE, sinusoidal)"),
+            (cfg.frontend is not None, f"the {cfg.frontend} frontend"),
+            (cfg.mtp, "multi-token prediction")):
+        if present:
+            raise layers.not_ported(f"{cfg.name}: {what}")
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+
+def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
+                dtype: torch.dtype, lead=()) -> dict:
+    d = cfg.d_model
+    p: Dict[str, Any] = {"norm1": layers.rmsnorm_init(d, dtype, gen.device,
+                                                      lead),
+                         "attn": layers.gqa_init(gen, cfg, dtype, lead)}
+    if spec.ffn == "dense":
+        p["norm2"] = layers.rmsnorm_init(d, dtype, gen.device, lead)
+        p["mlp"] = layers.mlp_init(gen, d, cfg.d_ff, dtype, lead)
+    return p
+
+
+def _init_stage(gen: torch.Generator, cfg: ArchConfig, stage: StageSpec,
+                dtype: torch.dtype) -> dict:
+    return {f"sub_{j}": _init_layer(gen, cfg, spec, dtype,
+                                    lead=(stage.n_units,))
+            for j, spec in enumerate(stage.unit)}
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator,
+                dtype: torch.dtype | None = None) -> dict:
+    """Parameters drawn from ``gen`` on its device: the JAX package's
+    distributions (normal x 0.02 embedding, uniform +-1/sqrt(fan_in)
+    products, unit norms), not its values."""
+    check_supported(cfg)
+    dtype = dtype or torch_dtype(cfg.dtype)
+    d = cfg.d_model
+    embed = (torch.empty((cfg.padded_vocab, d), dtype=torch.float32,
+                         device=gen.device).normal_(generator=gen)
+             * 0.02).to(dtype)
+    params: Dict[str, Any] = {
+        "embed": embed,
+        "final_norm": layers.rmsnorm_init(d, dtype, gen.device),
+        "stages": {},
+    }
+    for i, stage in enumerate(build_stages(cfg)):
+        params["stages"][f"stage_{i}"] = _init_stage(gen, cfg, stage, dtype)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.dense_param(gen, d, cfg.padded_vocab,
+                                               dtype)
+    # tied-embedding aliasing is realised at the state level (the training
+    # state exposes `lm_head` as the same tensor as `embed`); inside the
+    # model we read cfg.tie_embeddings.
+    return params
+
+
+# ---------------------------------------------------------------------------
+# layer application
+# ---------------------------------------------------------------------------
+
+def _positions_of(batch: dict, cfg: ArchConfig, seq: int, bsz: int,
+                  offset: int = 0, device=None) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] \
+        + offset
+    return pos.expand(bsz, seq)
+
+
+def _apply_layer(p: dict, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence layer: attention then the gated MLP, each residual."""
+    h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    x = x + layers.gqa_forward(p["attn"], cfg, h, positions)
+    if spec.ffn == "dense":
+        h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        x = x + layers.mlp_forward(p["mlp"], h)
+    return x
+
+
+def _unstack(tree: Any, n: int) -> List[Any]:
+    """A tree of stacked leaves -> ``n`` trees of per-unit leaves."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: subs[k][u] for k in tree} for u in range(n)]
+    parts = tree.unbind(0)
+    if len(parts) != n:
+        raise ValueError(f"stacked leaf has {len(parts)} units, want {n}")
+    return list(parts)
+
+
+def _run_stages(stages_params: dict, stage_specs: List[StageSpec],
+                cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    for i, stage in enumerate(stage_specs):
+        units = _unstack(stages_params[f"stage_{i}"], stage.n_units)
+        for unit_params in units:
+            for j, spec in enumerate(stage.unit):
+                x = _apply_layer(unit_params[f"sub_{j}"], cfg, spec, x,
+                                 positions)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def embed_inputs(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    if "embeds" in batch:
+        raise layers.not_ported("precomputed input embeddings (frontends)")
+    return params["embed"][batch["tokens"].long()]
+
+
+def forward(cfg: ArchConfig, params: dict, batch: dict, *,
+            return_aux: bool = False):
+    """Full-sequence forward. Returns float32 logits [B,S,V] (and an aux
+    dict whose ``moe_aux`` is a float32 zero for the dense family)."""
+    check_supported(cfg)
+    x = embed_inputs(cfg, params, batch)
+    bsz, seq, _ = x.shape
+    positions = _positions_of(batch, cfg, seq, bsz, device=x.device)
+    x = _run_stages(params["stages"], build_stages(cfg), cfg, x, positions)
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(cfg, params, x)
+    if return_aux:
+        return logits, {"moe_aux": torch.zeros((), dtype=torch.float32,
+                                               device=x.device)}
+    return logits
+
+
+def unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings or "lm_head" not in params:
+        return layers.einsum_f32("bsd,vd->bsv", x, params["embed"])
+    return layers.einsum_f32("bsd,dv->bsv", x, params["lm_head"])

@@ -1,0 +1,6 @@
+from repro_torch.train.step import (TrainState, cross_entropy,
+                                    init_train_state, make_loss_fn,
+                                    make_train_step)
+
+__all__ = ["TrainState", "cross_entropy", "init_train_state",
+           "make_loss_fn", "make_train_step"]

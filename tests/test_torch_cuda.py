@@ -151,6 +151,7 @@ def test_cuda_session_matches_cpu_session(dev):
     """The same cells on a CUDA session (kernels) and a CPU session (plain
     versions) write identical stores and restore identical states."""
     from repro_torch.core import KishuSession, MemoryStore
+    from repro_torch.core.delta import exact_dirty_indices
     from repro_torch.kernels import _lib
 
     def cells(device):
@@ -180,10 +181,14 @@ def test_cuda_session_matches_cpu_session(dev):
         s.init_state({})
         c0 = s.run("init")
         cids = [s.run("step", k=k) for k in (1, 2, 3)]
+        last = {n: s.ns[n].clone() for n in s.ns.names()}
         s.checkout(c0)
         back = {n: s.ns[n].cpu().clone() for n in s.ns.names()}
         s.checkout(cids[-1])
         if device == "cuda":
+            # the restored tensors verified exactly on the card (block_diff)
+            for n in s.ns.names():
+                assert exact_dirty_indices(s.ns[n], last[n], 1 << 16) == [], n
             assert all(v > 0 for v in _lib.launches().values()), \
                 _lib.launches()
         out[device] = (dict(store.chunks), back,
@@ -193,3 +198,113 @@ def test_cuda_session_matches_cpu_session(dev):
     for i in (1, 2):
         for n in out["cpu"][i]:
             assert torch.equal(out["cpu"][i][n], out["cuda"][i][n]), n
+
+
+# ---------------------------------------------------------------------------
+# block_diff and the trainer on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,n", CASES)
+@pytest.mark.parametrize("cb", [4096, 1 << 20, 3000, 4098, 3 << 20])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_block_diff_kernel_matches_plain(dev, dtype, n, cb, offset):
+    from repro_torch.kernels.block_diff.ops import (block_diff_cuda,
+                                                    block_diff_plain)
+    a = _tensor(dtype, n, dev).view(torch.uint8)[offset:]   # unaligned too
+    nb = a.numel()
+    for flips in ([], [0], [nb - 1], [7, nb // 2, nb - 2]):
+        b = a.clone()
+        for pos in flips:
+            b[pos] ^= 0x10
+        got = block_diff_cuda(a, b, cb)
+        want = block_diff_plain(a, b, cb)
+        assert got.dtype == torch.int32 and torch.equal(got, want), flips
+        assert int(got.sum()) == len({p // cb for p in flips})
+
+
+def test_block_diff_guard_and_ragged_tail(dev):
+    """Bytes past the compared length differ in the two buffers and are
+    never read; a flip in the ragged last chunk's true bytes is found."""
+    from repro_torch.kernels.block_diff.ops import block_diff_cuda
+    n, cb = 3 * 4096 + 5, 4096
+    big_a = torch.zeros(n + 64, dtype=torch.uint8, device=dev)
+    big_b = big_a.clone()
+    big_b[n:] = 0xFF
+    assert block_diff_cuda(big_a[:n], big_b[:n], cb).tolist() == [0] * 4
+    big_b[n - 1] = 1
+    assert block_diff_cuda(big_a[:n], big_b[:n], cb).tolist() == [0, 0, 0, 1]
+
+
+def test_block_diff_launch_failure_raises(dev, monkeypatch):
+    """exact_dirty_indices never falls back to a host compare, whatever the
+    chunk size: it launches the kernel, and a failing launch raises."""
+    from repro_torch.core.delta import exact_dirty_indices
+    from repro_torch.kernels import _lib
+    a = torch.zeros(10_000, device=dev)
+    b = a.clone()
+    b[-1] = 1
+    for cb in (4096, 3000):
+        before = _lib.launches()["block_diff"]
+        assert exact_dirty_indices(a, b, cb) == [(40_000 - 1) // cb]
+        assert _lib.launches()["block_diff"] == before + 1
+    real = _lib.call
+
+    def failing(fn, *args):
+        if fn == "kishu_block_diff":
+            raise RuntimeError(f"{fn}: injected CUDA error")
+        return real(fn, *args)
+
+    monkeypatch.setattr(_lib, "call", failing)
+    for cb in (4096, 3000):
+        with pytest.raises(RuntimeError, match="injected CUDA error"):
+            exact_dirty_indices(a, a.clone(), cb)
+
+
+def test_trainer_session_checkouts_verify_on_the_card(dev):
+    """A reduced qwen3 trainer on the card: every checkout and a resume
+    restore bit-identical, as block_diff shows; the LR-only commit changes
+    no tensor."""
+    from repro_torch.core import MemoryStore
+    from repro_torch.core.delta import exact_dirty_indices
+    from repro_torch.kernels import _lib
+    from repro_torch.models.config import get_config
+    from repro_torch.models.testing import reduced
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import ManagedTrainingSession, resume
+
+    cfg = reduced(get_config("qwen3-1.7b"), n_layers=2)
+    store = MemoryStore()
+    kw = dict(global_batch=2, seq_len=16, chunk_bytes=4096)
+
+    def snap(s):
+        return {n: s.ns[n].clone() for n in s.ns.names()
+                if isinstance(s.ns[n], torch.Tensor)}
+
+    def same(s, want):
+        for n, t in want.items():
+            assert s.ns[n].is_cuda
+            assert exact_dirty_indices(s.ns[n], t, 4096) == [], n
+
+    s = ManagedTrainingSession(cfg, AdamWConfig(lr=1e-3), store, **kw)
+    _lib.reset_launches()
+    s.attach(seed=0)
+    c1 = s.train(2)
+    s1 = snap(s)
+    s.set_lr(5e-4)
+    same(s, s1)
+    c3 = s.train(2)
+    s3 = snap(s)
+    s.evaluate(1)
+    s.checkout(c1)
+    same(s, s1)
+    s.checkout(c3)
+    same(s, s3)
+    assert s.ns["state/params/embed"] is s.ns["state/params/lm_head"]
+    s.close()
+    r = resume(cfg, AdamWConfig(lr=1e-3), store, **kw)
+    assert r.kishu.head == c3
+    same(r, s3)
+    r.close()
+    counts = _lib.launches()
+    assert counts["block_diff"] > 0 and counts["chunk_hash"] > 0 \
+        and counts["delta_pack"] > 0, counts

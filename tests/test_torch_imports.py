@@ -49,6 +49,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.kernels.delta_pack.ops\n"
             "import repro_torch.kernels.delta_codec.ops\n"
             "import repro_torch.kernels.patch_scatter.ops\n"
+            "import repro_torch.kernels.block_diff.ops\n"
+            "import repro_torch.train.loop, repro_torch.launch.train\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
             "       or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
@@ -61,7 +63,7 @@ def test_kernel_modules_build_nothing_at_import(tmp_path, monkeypatch):
     monkeypatch.setenv("KISHU_KERNEL_BUILD_DIR", str(tmp_path / "kbuild"))
     from repro_torch.kernels import _lib
     assert set(_lib.KERNELS) == {"chunk_hash", "delta_pack", "delta_codec",
-                                 "patch_scatter"}
+                                 "patch_scatter", "block_diff"}
     for name in _lib.KERNELS:
         assert (_lib.CSRC / f"{name}.cu").is_file()
     assert not (tmp_path / "kbuild").exists()
@@ -84,6 +86,7 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     from repro_torch.kernels.delta_codec.ops import encode_rows
     from repro_torch.kernels.delta_pack.ops import delta_pack
     from repro_torch.kernels.patch_scatter.ops import scatter_chunks
+    from repro_torch.kernels.block_diff.ops import block_diff
     import numpy as np
     x = torch.zeros(4096, device="meta")
     with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
@@ -94,3 +97,5 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         encode_rows(torch.zeros((1, 1024), dtype=torch.int32, device="meta"))
     with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
         scatter_chunks(x, [0], [bytes(4096)], 4096)
+    with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
+        block_diff(x, x, 4096)

@@ -1,0 +1,306 @@
+"""The port's dense decoder held against the JAX package's, function by
+function, on reduced ``smollm-360m`` and reduced ``qwen3-1.7b`` (qk-norm).
+
+Parameters come from the JAX package's own initialiser and cross as raw
+bytes (``interop.to_torch``); inputs are made from numpy seeds.  float32
+tolerance: atol 1e-5 / rtol 1e-4 (logits atol 1e-4) — the two frameworks
+sum products in different orders.  One bf16 forward: atol 3e-2, since
+bf16 rounds each cast to 8 bits of mantissa.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.models import layers as jl  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.models.config import get_config as jget  # noqa: E402
+from repro.models.testing import reduced as jreduced  # noqa: E402
+
+from repro_torch.core.serialize import dtype_name  # noqa: E402
+from repro_torch.interop import to_torch  # noqa: E402
+from repro_torch.models import layers as tl  # noqa: E402
+from repro_torch.models import lm as tlm  # noqa: E402
+from repro_torch.models.config import (MLAConfig, MoEConfig,  # noqa: E402
+                                       SSMConfig)
+from repro_torch.models.config import get_config as tget  # noqa: E402
+from repro_torch.models.testing import reduced as treduced  # noqa: E402
+
+ARCHS = ["smollm-360m", "qwen3-1.7b"]
+TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def _cfgs(arch, **kw):
+    return jreduced(jget(arch)).replace(**kw), \
+        treduced(tget(arch)).replace(**kw)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(_np(got), _np(want), **(tol or TOL))
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat(v, name))
+        else:
+            out[name] = v
+    return out
+
+
+def _jax_params(jcfg, seed=0):
+    p = jlm.init_params(jcfg, jax.random.key(seed))
+    return p, to_torch(jax.tree.map(np.asarray, p), "cpu")
+
+
+def _x(shape, seed, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def _tokens(cfg, b=2, s=12, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# configs and layout
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_are_the_jax_packages(arch):
+    for jc, tc in ((jget(arch), tget(arch)), _cfgs(arch)):
+        assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+        assert jc.padded_vocab == tc.padded_vocab
+        assert jc.param_counts() == tc.param_counts()
+
+
+def test_smollm_full_size_counts():
+    cfg = tget("smollm-360m")
+    assert cfg.param_counts()["total"] == 361_821_120
+    assert cfg.padded_vocab == cfg.vocab_size == 49152
+    assert cfg.dtype == "bfloat16" and cfg.tie_embeddings
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_stages_match(arch):
+    jc, tc = _cfgs(arch)
+    for j, t in ((jget(arch), tget(arch)), (jc, tc)):
+        js, ts = jlm.build_stages(j), tlm.build_stages(t)
+        assert [(tuple((s.kind, s.ffn, s.cross) for s in st.unit),
+                 st.n_units) for st in js] == \
+               [(tuple((s.kind, s.ffn, s.cross) for s in st.unit),
+                 st.n_units) for st in ts]
+        assert tlm._min_period(tlm.layer_specs(t)) == \
+            jlm._min_period(jlm.layer_specs(j))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_params_layout(arch, dtype):
+    """Same leaf names, shapes (stacked [n_units] axis) and dtype strings;
+    the port's draws match the JAX package's distributions."""
+    jc, tc = _cfgs(arch, dtype=dtype, n_layers=3)
+    jp = _flat(jax.tree.map(np.asarray, jlm.init_params(jc,
+                                                        jax.random.key(0))))
+    tp = _flat(tlm.init_params(tc, torch.Generator().manual_seed(0)))
+    assert sorted(jp) == sorted(tp)
+    for name in jp:
+        assert tuple(tp[name].shape) == jp[name].shape, name
+        assert dtype_name(tp[name].dtype) == str(jp[name].dtype), name
+    assert tp["stages/stage_0/sub_0/attn/wq"].shape[0] == 3
+    assert torch.equal(tp["final_norm/scale"].float(),
+                       torch.ones(tc.d_model))
+    wq = tp["stages/stage_0/sub_0/attn/wq"].float()
+    assert wq.abs().max() <= 1 / np.sqrt(tc.d_model)
+    assert abs(float(tp["embed"].float().std()) - 0.02) < 2e-3
+    again = _flat(tlm.init_params(tc, torch.Generator().manual_seed(0)))
+    assert all(torch.equal(tp[n], again[n]) for n in tp)   # seeded
+
+
+def test_untied_head():
+    jc, tc = _cfgs("smollm-360m", tie_embeddings=False)
+    jp = _flat(jax.tree.map(np.asarray, jlm.init_params(jc,
+                                                        jax.random.key(0))))
+    tp = _flat(tlm.init_params(tc, torch.Generator().manual_seed(0)))
+    assert tuple(tp["lm_head"].shape) == jp["lm_head"].shape
+    x = _x((2, 3, jc.d_model), 1)
+    _close(tlm.unembed(tc, tp, torch.from_numpy(x)),
+           jlm.unembed(jc, {"lm_head": jnp.asarray(
+               tp["lm_head"].numpy())}, jnp.asarray(x)), atol=1e-4)
+
+
+@pytest.mark.parametrize("kw", [
+    {"mla": MLAConfig()}, {"moe": MoEConfig()}, {"family": "ssm"},
+    {"family": "hybrid", "hybrid_pattern": ("attn", "ssm")},
+    {"ssm": SSMConfig()}, {"enc_dec": True}, {"rope_type": "mrope"},
+    {"rope_type": "none"}, {"frontend": "audio"}, {"mtp": True}],
+    ids=lambda kw: "-".join(kw))
+def test_unported_features_raise(kw):
+    cfg = treduced(tget("smollm-360m")).replace(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 10"):
+        tlm.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 10"):
+        tlm.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_rmsnorm(d):
+    x = _x((2, 5, d), 0)
+    scale = _x((d,), 1)
+    want = jl.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x), 1e-5)
+    got = tl.rmsnorm({"scale": torch.from_numpy(scale)}, torch.from_numpy(x),
+                     1e-5)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+def test_rope(theta):
+    x = _x((2, 9, 3, 16), 2)
+    pos = np.broadcast_to(np.arange(9, dtype=np.int32) + 5, (2, 9))
+    assert np.array_equal(tl.rope_frequencies(16, theta),
+                          jl.rope_frequencies(16, theta))
+    want = jl.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    got = tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos.copy()),
+                        theta)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (True, 3),
+                                             (False, 0)])
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4), (15, 5)])
+def test_attention_core(causal, q_offset, hq, hkv):
+    q = _x((2, 6, hq, 16), 3)
+    k = _x((2, 9, hkv, 16), 4)
+    v = _x((2, 9, hkv, 16), 5)
+    want = jl.attention_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, q_offset=q_offset)
+    got = tl.attention_core(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal=causal,
+                            q_offset=q_offset)
+    _close(got, want)
+    assert np.array_equal(
+        tl._repeat_kv(torch.from_numpy(k), hq // hkv).numpy(),
+        np.asarray(jl._repeat_kv(jnp.asarray(k), hq // hkv)))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gqa_forward(arch):
+    jc, tc = _cfgs(arch)
+    jp = jl.gqa_init(jax.random.key(1), jc, jnp.float32)
+    tp = to_torch(jax.tree.map(np.asarray, jp), "cpu")
+    x = _x((2, 7, jc.d_model), 6)
+    pos = np.broadcast_to(np.arange(7, dtype=np.int32), (2, 7)).copy()
+    jq, jk, jv = jl._project_qkv(jp, jc, jnp.asarray(x), jnp.asarray(pos))
+    tq, tk, tv = tl._project_qkv(tp, tc, torch.from_numpy(x),
+                                 torch.from_numpy(pos))
+    for g, w in ((tq, jq), (tk, jk), (tv, jv)):
+        _close(g, w)
+    want = jl.gqa_forward(jp, jc, jnp.asarray(x), jnp.asarray(pos))
+    got = tl.gqa_forward(tp, tc, torch.from_numpy(x), torch.from_numpy(pos))
+    _close(got, want)
+    assert ("q_norm" in tp) == (arch == "qwen3-1.7b")
+
+
+def test_mlp_forward():
+    jp = jl.mlp_init(jax.random.key(2), 64, 128, jnp.float32)
+    tp = to_torch(jax.tree.map(np.asarray, jp), "cpu")
+    x = _x((2, 7, 64), 7)
+    _close(tl.mlp_forward(tp, torch.from_numpy(x)),
+           jl.mlp_forward(jp, jnp.asarray(x)))
+
+
+def test_dense_init_shapes():
+    g = torch.Generator().manual_seed(0)
+    assert tuple(tl.dense_param(g, 8, (3, 4), torch.float32).shape) \
+        == tuple(jl.dense_param(jax.random.key(0), 8, (3, 4),
+                                jnp.float32).shape)
+    assert tuple(tl.dense_param(g, 8, 5, torch.bfloat16, lead=(2,)).shape) \
+        == (2, 8, 5)
+
+
+# ---------------------------------------------------------------------------
+# the LM
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_embed_positions_unembed(arch):
+    jc, tc = _cfgs(arch)
+    jp, tp = _jax_params(jc)
+    toks = _tokens(jc)
+    batch_j, batch_t = {"tokens": jnp.asarray(toks)}, \
+        {"tokens": torch.from_numpy(toks)}
+    _close(tlm.embed_inputs(tc, tp, batch_t),
+           jlm.embed_inputs(jc, jp, batch_j), atol=0, rtol=0)
+    assert np.array_equal(tlm._positions_of(batch_t, tc, 12, 2).numpy(),
+                          np.asarray(jlm._positions_of(batch_j, jc, 12, 2)))
+    x = _x((2, 12, jc.d_model), 8)
+    got = tlm.unembed(tc, tp, torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    _close(got, jlm.unembed(jc, jp, jnp.asarray(x)), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_apply_layer_and_run_stages(arch):
+    jc, tc = _cfgs(arch)
+    jp, tp = _jax_params(jc)
+    x = _x((2, 8, jc.d_model), 9)
+    pos = np.broadcast_to(np.arange(8, dtype=np.int32), (2, 8)).copy()
+    spec_j, spec_t = jlm.build_stages(jc)[0].unit[0], \
+        tlm.build_stages(tc)[0].unit[0]
+    unit_j = jax.tree.map(lambda a: a[1], jp["stages"]["stage_0"])["sub_0"]
+    unit_t = tlm._unstack(tp["stages"]["stage_0"], jc.n_layers)[1]["sub_0"]
+    want, _ = jlm._apply_layer(unit_j, jc, spec_j, jnp.asarray(x),
+                               jnp.asarray(pos), None)
+    got = tlm._apply_layer(unit_t, tc, spec_t, torch.from_numpy(x),
+                           torch.from_numpy(pos))
+    _close(got, want)
+    want, _ = jlm._run_stages(jp["stages"], jlm.build_stages(jc), jc,
+                              jnp.asarray(x), jnp.asarray(pos), None,
+                              remat=False)
+    got = tlm._run_stages(tp["stages"], tlm.build_stages(tc), tc,
+                          torch.from_numpy(x), torch.from_numpy(pos))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_logits(arch):
+    jc, tc = _cfgs(arch)
+    jp, tp = _jax_params(jc)
+    toks = _tokens(jc, seed=3)
+    want = jlm.forward(jc, jp, {"tokens": jnp.asarray(toks)})
+    got, aux = tlm.forward(tc, tp, {"tokens": torch.from_numpy(toks)},
+                           return_aux=True)
+    assert got.shape == (2, 12, jc.padded_vocab)
+    assert got.dtype == torch.float32 and float(aux["moe_aux"]) == 0.0
+    _close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_forward_logits_bf16():
+    """bf16 parameters and activations, float32 logits (atol 3e-2)."""
+    jc, tc = _cfgs("smollm-360m", dtype="bfloat16")
+    jp, tp = _jax_params(jc, seed=4)
+    assert tp["embed"].dtype == torch.bfloat16
+    toks = _tokens(jc, seed=5)
+    want = jlm.forward(jc, jp, {"tokens": jnp.asarray(toks)})
+    got = tlm.forward(tc, tp, {"tokens": torch.from_numpy(toks)})
+    assert got.dtype == torch.float32
+    _close(got, want, atol=3e-2, rtol=0)

@@ -65,7 +65,10 @@ def _jax_cells():
 
     def zero_rows(ns):
         ns["emb"] = ns["emb"].at[100:400].set(0.0)
-        ns["mask"] = ns["mask"].at[:4096].set(False)
+        # an all-True bool chunk: compressible, and unlike an all-zero chunk
+        # it shares its key with no other chunk, so its stored bytes show
+        # how bool chunks are stored
+        ns["mask"] = ns["mask"].at[:4096].set(True)
 
     def full(ns):
         ns["h"] = ns["h"] * 2
@@ -97,7 +100,7 @@ def _torch_cells(device="cpu"):
 
     def zero_rows(ns):
         ns["emb"][100:400] = 0.0
-        ns["mask"][:4096] = False
+        ns["mask"][:4096] = True
 
     def full(ns):
         ns["h"].mul_(2)
@@ -174,10 +177,8 @@ def test_same_store_bytes_and_docs(device_path):
     tc, tsnaps = _drive(tsess, _torch_cells())
     assert jc == tc
     assert jsnaps == tsnaps
-    # chunk keys and stored bytes (raw and bshuf frames) are identical —
-    # except that the JAX device path cannot bitcast bool arrays and keeps
-    # them on the host path (never encoded), so the bool leaf's chunks are
-    # held by their logical bytes only
+    # chunk keys and stored bytes (raw and bshuf frames) are identical for
+    # every chunk, the bool leaf's included (both packages store it raw)
     assert set(js.chunks) == set(ts.chunks)
     bool_keys = {c["key"] for cid in jc
                  for m in jsess.graph.nodes[cid].manifests.values()
@@ -186,10 +187,7 @@ def test_same_store_bytes_and_docs(device_path):
                  for c in m["base"]["chunks"]}
     assert bool_keys
     for k in js.chunks:
-        if k in bool_keys:
-            assert js.get_chunk(k) == ts.get_chunk(k)
-        else:
-            assert js.chunks[k] == ts.chunks[k], k
+        assert js.chunks[k] == ts.chunks[k], k
     frames = [v for v in ts.chunks.values() if v[:5] == b"KZC1\x04"]
     assert frames, "the on-device codec never produced a stored frame"
     # per-co-variable manifests and whole commit docs match
