@@ -3,16 +3,19 @@
 
     python3 chip_smoke.py          # from the repository root; one card, nvcc
 
-Phase 0  builds the five CUDA kernels from ``src/repro_torch/csrc`` (one
+Phase 0  builds the six CUDA kernels from ``src/repro_torch/csrc`` (one
          nvcc per source, all started together) and prints the card's name
          and power limit.
 Phase 1  holds every kernel against its plain torch version on the card at
          the main path's shapes (1 MiB chunks of a 49152 x 960 fp32 tensor,
          plus ragged bf16 / unaligned uint8 tensors) — results must be
          bit-identical — and times the kernel, the plain version, the
-         least time the card could take (the bound), and for patch_scatter
-         the one PyTorch call that computes the same function (patch_scatter,
-         block_diff).
+         least time the card could take (the bound), and the one PyTorch
+         call that computes the same function where there is one
+         (patch_scatter, block_diff).  flash_attention is held within a
+         stated tolerance at Phase 5's prefill shape (bf16, 8 x 512, 15/5
+         heads of 64, causal) and six more (float32, full attention, no
+         GQA, head dim 128, ragged S, S 4096), and timed beside SDPA.
 Phase 2  the main path: a ``KishuSession`` on a ``dir://`` store commits a
          SmolLM-360M-shaped fine-tuning state (fp32 params + AdamW m and v,
          870 tensors, 4.34 GB, random from a seeded CUDA generator), runs an
@@ -31,6 +34,16 @@ Phase 4  the trainer path: ``ManagedTrainingSession`` trains SmolLM-360M at
          ``delta.exact_dirty_indices`` (the block_diff kernel).  Its
          launch counts are read from this phase, from attach to the resume's
          verification.
+Phase 5  the serving path (examples/serve_batched.py on the card):
+         SmolLM-360M at full width and depth (bf16, random from a seed);
+         ``make_prefill_step`` on 8 x 512 prompt tokens (the flash kernel,
+         once per layer), the teacher-forced decode loop fills 8 x 576-slot
+         KV caches and its logits are held against the prefill's; the
+         prefix is committed once (dir:// store, 16 KiB chunks), and four
+         generations of 64 tokens (flavors 1, 2, 3, then 1 again) each
+         start from a checkout of the prefix that block_diff verifies
+         exact; the repeated flavor must give the same tokens and caches.
+         flash_attention's launch count is read from this phase.
 
 Output: per-phase lines, one JSON line of kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  The full record goes to
@@ -54,6 +67,9 @@ CB = 1 << 20                         # the session's default chunk size
 # and 32-bit integer issue (132 SMs x 64 INT32 lanes x 1.98 GHz boost)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# dense tensor-core bf16 and plain float32 peaks (H100 SXM datasheet)
+BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
 HASH_OPS_PER_WORD = 18               # kernel's integer ops per hashed word
 # least integer ops per word the codec's function needs (not this kernel's
 # ballot design): a 32 x 32 bit transpose in 5 butterfly stages, each a
@@ -79,6 +95,12 @@ TRAINER_PATH_KERNELS = ("chunk_hash", "delta_pack", "block_diff")
 # probe samples half-old rows and sends the whole slice raw
 VOCAB_ROWS = (32768, 37683)
 VOCAB_ROWS_MID = (40000, 44915)
+# the serving cell (Phase 5): batch 8, a 512-token prompt, 64 generated
+# tokens, caches committed in 16 KiB chunks (examples/serve_batched.py's)
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 64
+SERVE_CHUNK = 1 << 14
+SERVE_PATH_KERNELS = ("flash_attention", "chunk_hash", "delta_pack",
+                      "patch_scatter", "block_diff")
 
 
 def fail(msg: str) -> None:
@@ -137,9 +159,9 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -347,6 +369,86 @@ def phase1(torch, dev) -> list:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"library {r['library_ms']}", flush=True)
     return rows_out
+
+
+def flash_cases(torch) -> list:
+    """(label, B, S, Hq, Hkv, hd, dtype, causal): Phase 5's prefill shape
+    first, then float32, full attention, no GQA, qwen3-1.7b's head dim, a
+    ragged S and a long S."""
+    bf, f32 = torch.bfloat16, torch.float32
+    b, s, hq, hkv = SERVE_BATCH, SERVE_PROMPT, N_HEADS, N_KV
+    return [("main", b, s, hq, hkv, HEAD_DIM, bf, True),
+            ("float32", b, s, hq, hkv, HEAD_DIM, f32, True),
+            ("full", b, s, hq, hkv, HEAD_DIM, bf, False),
+            ("n_rep_1", b, s, hq, hq, HEAD_DIM, bf, True),
+            ("hd_128", b, s, 16, 8, 128, bf, True),
+            ("ragged", b, s + 5, hq, hkv, HEAD_DIM, bf, True),
+            ("long", 1, 4096, hq, hkv, HEAD_DIM, bf, True)]
+
+
+def phase1_flash(torch, dev) -> dict:
+    """The flash kernel against its plain version at Phase 5's prefill
+    shape and six more; kernel, plain and SDPA times and the bound of
+    each."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    # tolerance against the plain version: float32 atol 1e-5 / rtol 1e-4
+    # (summation order); bf16 atol 1e-5 / rtol 2**-7, one unit in the last
+    # place: both compute one float32 value up to summation order, and its
+    # one rounding to bf16 may land on neighbouring values
+    tol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 2 ** -7)}
+    g = torch.Generator(device=dev).manual_seed(2)
+    checks = []
+    for label, b, s, hq, hkv, hd, dtype, causal in flash_cases(torch):
+        q, k, v = (torch.randn((b, s, h, hd), device=dev, generator=g)
+                   .to(dtype) for h in (hq, hkv, hkv))
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal).float()
+        diff = (got.float() - want).abs()
+        atol, rtol = tol[dtype]
+        err = float(diff.max())
+        check(bool((diff <= atol + rtol * want.abs()).all()),
+              f"flash_attention {label}: max abs error {err} outside "
+              f"atol {atol} + rtol {rtol}")
+        check(not causal or torch.equal(
+            got[:, 0], v[:, 0].repeat_interleave(hq // hkv, dim=1)),
+            f"flash_attention {label}: causal row 0 is not v[0]")
+        pairs = s * (s + 1) // 2 if causal else s * s
+        flops = 4 * b * hq * hd * pairs
+        nbytes = b * s * (2 * hq + 2 * hkv) * hd * q.element_size()
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S
+                           if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        iters = 5 if s > 1024 else 20
+        checks.append({
+            "label": label, "shape": [b, s, hq, hkv, hd],
+            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+            "max_abs_err": err, "atol": atol, "rtol": rtol,
+            "ms": time_ms(torch, lambda: flash_attention_cuda(
+                q, k, v, causal=causal), iters),
+            "plain_ms": time_ms(torch, lambda: flash_attention_plain(
+                q, k, v, causal=causal), 3),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), iters),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "bytes": nbytes})
+        del q, k, v, got, want, diff, qt, kt, vt
+    for c in checks:
+        print(f"phase1 flash_attention {c['label']}: B,S,Hq,Hkv,hd "
+              f"{c['shape']} {c['dtype']} causal={c['causal']}; max abs err "
+              f"{c['max_abs_err']:.3g} (atol {c['atol']} rtol {c['rtol']}); "
+              f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, "
+              f"sdpa {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']})", flush=True)
+    main = checks[0]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+            "shape": f"bf16 B,S,Hq,Hkv,hd {main['shape']} causal",
+            "checks": checks}
 
 
 # ---------------------------------------------------------------------------
@@ -736,6 +838,218 @@ def phase4(torch, dev, workdir: Path) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: serving under Kishu (SmolLM-360M, full size)
+# ---------------------------------------------------------------------------
+
+def phase5(torch, dev, workdir: Path) -> dict:
+    """examples/serve_batched.py on the card: prefill (flash kernel) and the
+    teacher-forced decode loop fill the KV caches, the prefix is committed
+    once, and each of three flavors of generation (then flavor 1 again)
+    starts from a checkout of the prefix, verified exactly by block_diff."""
+    import math
+    from repro_torch.core import KishuSession, open_store
+    from repro_torch.kernels import _lib
+    from repro_torch.models import lm
+    from repro_torch.models.config import get_config
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as step_lib
+
+    cfg = get_config("smollm-360m")            # full width and depth
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(n_params == 361_821_120, f"{n_params} parameters")
+    check(all(t.dtype == torch.bfloat16 and t.is_cuda for t in leaves),
+          "serving params must be bf16 on the card")
+    b, plen, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    vocab = cfg.vocab_size
+    prompts = torch.randint(0, vocab, (b, plen), dtype=torch.int32,
+                            device=dev, generator=torch.Generator(
+                                device=dev).manual_seed(1))
+    prefill_step = step_lib.make_prefill_step(cfg)
+    decode = step_lib.make_decode_step(cfg)
+    # bound on |prefill - decode| logits, from bf16: one rounding (2**-8
+    # relative) per residual add, 2 per layer, summed as a random walk,
+    # moves the final normed state x (|x| = sqrt(d_model)) by
+    # 2**-8 sqrt(2 L) sqrt(d_model); a logit moves by at most that times
+    # the embedding row's norm
+    row_norm = float(params["embed"].float().norm(dim=1).max())
+    logit_bound = 2 ** -8 * math.sqrt(2 * cfg.n_layers) \
+        * math.sqrt(cfg.d_model) * row_norm
+    rec: dict = {"arch": cfg.name, "params": n_params, "batch": b,
+                 "prompt": plen, "gen": gen, "chunk_bytes": SERVE_CHUNK,
+                 "logit_bound": logit_bound}
+
+    def prefill(ns):
+        t0 = time.perf_counter()
+        logits = prefill_step(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        rec["prefill_step_s"] = time.perf_counter() - t0
+        rec["prefill_step_launches"] = _lib.launches()["flash_attention"]
+        check(tuple(logits.shape) == (b, plen, cfg.padded_vocab)
+              and logits.dtype == torch.float32
+              and bool(torch.isfinite(logits).all()),
+              f"prefill logits {tuple(logits.shape)} {logits.dtype}")
+        t0 = time.perf_counter()
+        caches = lm.init_caches(cfg, b, plen + gen)
+        tok = prompts[:, :1]
+        err_max = torch.zeros((), device=dev)
+        err_sum = torch.zeros((), dtype=torch.float64, device=dev)
+        with torch.no_grad():
+            for t in range(plen):
+                lg, caches = lm.decode_step(cfg, params, caches,
+                                            {"tokens": tok, "index": t})
+                d = (lg[:, 0] - logits[:, t]).abs()
+                err_max = torch.maximum(err_max, d.max())
+                err_sum += d.double().sum()
+                tok = prompts[:, t + 1:t + 2] if t + 1 < plen else \
+                    lg[..., :vocab].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        rec["decode_prefill_s"] = time.perf_counter() - t0
+        rec["prefill_decode_max_abs_err"] = float(err_max)
+        rec["prefill_decode_mean_abs_err"] = float(err_sum) / logits.numel()
+        last = logits[:, -1]
+        rec["last_argmax_agree"] = int(
+            (last[:, :vocab].argmax(-1).to(torch.int32) == tok[:, 0]).sum())
+        ns.set_tree("caches", caches)
+        ns["prefill_last_logits"] = last.clone()
+        ns["last_tok"] = tok
+        ns["pos"] = plen
+
+    def generate(ns, n, flavor):
+        caches = ns.get_tree("caches")
+        tok, pos, outs = ns["last_tok"], ns["pos"], []
+        for t in range(n):
+            tok, caches = decode(params, caches,
+                                 {"tokens": (tok + flavor) % vocab,
+                                  "index": pos + t})
+            outs.append(tok)
+        ns.set_tree("caches", caches)
+        ns["last_tok"] = tok
+        ns["pos"] = pos + n
+        ns["generated"] = torch.cat(outs, dim=1)
+
+    sess = KishuSession(open_store(f"dir://{workdir}/serve_cas"),
+                        chunk_bytes=SERVE_CHUNK, trace=True)
+    check(sess.device.type == "cuda", "the session did not default to cuda")
+    tracer = sess.obs.tracer
+    sess.register("prefill", prefill)
+    sess.register("generate", generate)
+    sess.init_state({})
+
+    def run_rec(label: str, t0: float) -> None:
+        torch.cuda.synchronize()
+        rec[f"{label}_s"] = time.perf_counter() - t0
+        rec[f"{label}_stages"] = tracer.stage_totals()
+        tracer.clear()
+        r, w = sess.last_run, sess.last_run.write
+        rec[label] = {"exec_s": r.exec_s, "commit_s": r.detect_s + r.write_s,
+                      "covs_updated": r.covs_updated,
+                      "covs_packed": w.covs_packed,
+                      "bytes_serialized": w.bytes_serialized,
+                      "bytes_dev2host": w.bytes_dev2host,
+                      "bytes_written": w.bytes_written,
+                      "chunks_written": w.chunks_written,
+                      "chunks_encoded": w.chunks_encoded}
+
+    tokens: dict = {}
+    try:
+        tracer.clear()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        c_prefix = sess.run("prefill")
+        run_rec("prefill", t0)
+        cache_names = sorted(n for n in sess.ns.names()
+                             if n.startswith("caches/"))
+        rec["cache_leaves"] = {n: [list(sess.ns[n].shape),
+                                   str(sess.ns[n].dtype)]
+                               for n in cache_names}
+        rec["cache_bytes"] = sum(sess.ns[n].numel()
+                                 * sess.ns[n].element_size()
+                                 for n in cache_names)
+        check(rec["prefill_step_launches"] == cfg.n_layers,
+              f"prefill launched flash {rec['prefill_step_launches']} "
+              f"times, want {cfg.n_layers}")
+        check(rec["prefill_decode_max_abs_err"] <= logit_bound,
+              f"prefill and decode logits differ by "
+              f"{rec['prefill_decode_max_abs_err']} > {logit_bound}")
+        snap0 = tensor_snapshot(torch, sess.ns)
+        snap1 = None
+        for i, flavor in enumerate((1, 2, 3, 1)):
+            t0 = time.perf_counter()
+            st = sess.checkout(c_prefix)
+            torch.cuda.synchronize()
+            rec[f"checkout_{i}_s"] = time.perf_counter() - t0
+            rec[f"checkout_{i}_stages"] = tracer.stage_totals()
+            tracer.clear()
+            rec[f"checkout_{i}"] = {
+                "covs_loaded": st.covs_loaded,
+                "covs_patched": st.covs_patched,
+                "covs_scattered": st.covs_scattered,
+                "chunks_patched": st.chunks_patched,
+                "bytes_loaded": st.bytes_loaded,
+                "bytes_cached": st.bytes_cached,
+                "bytes_host2dev": st.bytes_host2dev}
+            rec[f"verify_checkout_{i}_s"] = verify_exact(
+                torch, sess.ns, snap0, f"checkout {i} to the prefix")
+            t0 = time.perf_counter()
+            sess.run("generate", n=gen, flavor=flavor)
+            run_rec(f"generate_{i}", t0)
+            rec[f"generate_{i}"]["flavor"] = flavor
+            got = sess.ns["generated"]
+            check(tuple(got.shape) == (b, gen) and int(got.max()) < vocab
+                  and int(got.min()) >= 0, f"generated {tuple(got.shape)}")
+            if flavor in tokens:
+                check(torch.equal(got, tokens[flavor]),
+                      f"flavor {flavor} regenerated other tokens")
+                rec["verify_repeat_s"] = verify_exact(
+                    torch, sess.ns, snap1, f"flavor {flavor} repeated")
+            else:
+                tokens[flavor] = got.clone()
+                if snap1 is None:
+                    snap1 = tensor_snapshot(torch, sess.ns)
+        check(not torch.equal(tokens[1], tokens[2]),
+              "flavors 1 and 2 generated the same tokens")
+        rec["launches"] = _lib.launches()
+    finally:
+        sess.close()
+    rec["tokens_flavor_1_seq0"] = tokens[1][0, :12].tolist()
+    rec["prefill_tok_s"] = b * plen / rec["prefill_step_s"]
+    rec["decode_prefill_tok_s"] = b * plen / rec["decode_prefill_s"]
+    rec["generate_tok_s"] = [b * gen / rec[f"generate_{i}_s"]
+                             for i in range(4)]
+    print(f"phase5 {cfg.name}: {n_params} bf16 params; caches "
+          f"{rec['cache_leaves']} ({rec['cache_bytes']} bytes) on {dev}",
+          flush=True)
+    print(f"phase5 prefill_step: {rec['prefill_step_s']:.3f} s "
+          f"({rec['prefill_tok_s']:.0f} tok/s, "
+          f"{rec['prefill_step_launches']} flash launches); decode-loop "
+          f"prefill {rec['decode_prefill_s']:.3f} s "
+          f"({rec['decode_prefill_tok_s']:.0f} tok/s); logits max abs diff "
+          f"{rec['prefill_decode_max_abs_err']:.4f} (mean "
+          f"{rec['prefill_decode_mean_abs_err']:.2e}, bound "
+          f"{logit_bound:.4f}); last-position argmax agrees on "
+          f"{rec['last_argmax_agree']} of {b}", flush=True)
+    for key in ["prefill"] + [f"generate_{i}" for i in range(4)]:
+        print(f"phase5 {key}: {rec[f'{key}_s']:.3f} s; {rec[key]}; stages "
+              f"{rec[f'{key}_stages']}", flush=True)
+    for i in range(4):
+        print(f"phase5 checkout_{i} to the prefix: {rec[f'checkout_{i}_s']:.3f}"
+              f" s, every tensor bit-identical (block_diff, "
+              f"{rec[f'verify_checkout_{i}_s']:.3f} s); {rec[f'checkout_{i}']}"
+              f"; stages {rec[f'checkout_{i}_stages']}", flush=True)
+    print(f"phase5 flavor 1 repeated: same tokens, caches bit-identical "
+          f"(block_diff, {rec['verify_repeat_s']:.3f} s); generate tok/s "
+          f"{[round(x, 1) for x in rec['generate_tok_s']]}; sample "
+          f"{rec['tokens_flavor_1_seq0']}", flush=True)
+    print(f"phase5 kernels: {json.dumps(rec['launches'])}", flush=True)
+    missing = [k for k in SERVE_PATH_KERNELS if rec["launches"][k] <= 0]
+    check(not missing, f"kernels never launched on the serving path: "
+                       f"{missing}")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -771,6 +1085,7 @@ def main() -> int:
                     "build_s": build_s}
     t0 = time.perf_counter()
     kernels = phase1(torch, dev)
+    kernels.append(phase1_flash(torch, dev))
     record["phase1_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     workdir = Path(tempfile.mkdtemp(prefix="kishu_smoke_"))
@@ -790,11 +1105,20 @@ def main() -> int:
         record["phase4_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    workdir = Path(tempfile.mkdtemp(prefix="kishu_smoke_serve_"))
+    try:
+        t0 = time.perf_counter()
+        record["phase5"] = phase5(torch, dev, workdir)
+        record["phase5_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     # launches: each kernel's count on the path that first needed it —
     # Phase 2 (commit -> checkout) for the four, Phase 4 (trainer) for
-    # block_diff
+    # block_diff, Phase 5 (serving) for flash_attention
+    first_path = {"block_diff": "phase4", "flash_attention": "phase5"}
     for row in kernels:
-        phase = "phase4" if row["name"] == "block_diff" else "phase2"
+        phase = first_path.get(row["name"], "phase2")
         row["launches"] = record[phase]["launches"][row["name"]]
     record["kernels"] = kernels
     out_dir = ROOT / "build"

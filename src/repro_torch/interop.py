@@ -5,7 +5,9 @@ The JAX package's state becomes a tree of numpy arrays through
 device and :func:`to_numpy` turns tensors back, so both packages can
 commit the same state.  :func:`train_state_to_torch` does so for the JAX
 package's TrainState, so the port's trainer can start from exactly the
-JAX package's initialised parameters.  The device is ``cuda`` unless the caller names
+JAX package's initialised parameters; :func:`to_torch` carries a JAX
+cache tree (``lm.init_caches`` or ``decode_step`` output, int32
+``index`` leaves included) to the port's layout the same way.  The device is ``cuda`` unless the caller names
 another, as for ``KishuSession``: with no card and no explicit ``"cpu"``
 the call raises.  Dtypes numpy spells through ``ml_dtypes`` (bf16, fp8)
 cross as raw bytes, never through a numpy cast.

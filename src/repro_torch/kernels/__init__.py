@@ -8,6 +8,8 @@ its plain PyTorch version beside it in the same module.
 - ``patch_scatter`` — in-place landing of fetched chunks at checkout.
 - ``block_diff``    — exact per-chunk compare of two tensors (verifies
                       restored and committed state, ``delta.exact_dirty_indices``).
+- ``flash_attention`` — tiled GQA softmax attention, forward only (the
+                      prefill's attention, ``models.layers.gqa_forward``).
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the
 plain version for a CPU tensor.  Nothing here builds or imports CUDA code

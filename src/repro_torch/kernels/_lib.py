@@ -28,11 +28,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("chunk_hash", "delta_pack", "delta_codec", "patch_scatter",
-           "block_diff")
+           "block_diff", "flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_P, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_float)
 # entry point -> (library, argtypes); every entry returns a cudaError_t
 _SIGNATURES: Dict[str, Tuple[str, List]] = {
     "kishu_chunk_hash": ("chunk_hash", [_P, _LL, _LL, _I, _P, _P]),
@@ -44,6 +45,10 @@ _SIGNATURES: Dict[str, Tuple[str, List]] = {
     "kishu_patch_scatter": ("patch_scatter",
                             [_P, _LL, _LL, _I, _P, _LL, _P, _P]),
     "kishu_block_diff": ("block_diff", [_P, _P, _LL, _LL, _I, _P, _P]),
+    # q, k, v, o; B, S, Hq, Hkv, hd, dtype, causal; scale; 4 x 4 strides
+    "kishu_flash_attention": ("flash_attention",
+                              [_P] * 4 + [_I] * 7 + [_F] + [_LL] * 16
+                              + [_P]),
 }
 
 _lock = threading.Lock()

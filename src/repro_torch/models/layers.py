@@ -1,5 +1,6 @@
-"""Core neural layers of the dense decoder: RMSNorm, RoPE, GQA attention and
-the gated MLP, as plain functions on tensors (the port of the JAX package's
+"""Core neural layers of the dense decoder: RMSNorm, RoPE, GQA attention
+(full sequence and one-token decode against a KV cache) and the gated MLP,
+as plain functions on tensors (the port of the JAX package's
 ``models/layers.py``, dense subset).  Parameters are nested dicts of
 tensors with the JAX package's names, shapes and layouts.
 
@@ -18,12 +19,13 @@ Conventions
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ArchConfig
 
 Shape = Sequence[int]
@@ -114,13 +116,15 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool, q_offset: int = 0,
+                   causal: bool, q_offset: Union[int, torch.Tensor] = 0,
                    softmax_scale: Optional[float] = None) -> torch.Tensor:
     """Scaled dot-product attention with GQA broadcast.
 
     q: [B,Sq,Hq,hd]  k,v: [B,Skv,Hkv,hd(v)]  -> [B,Sq,Hq,hd_v]
-    ``q_offset``: absolute position of q[0].  Masked logits are the finite
-    -1e30, as in the JAX package, not -inf.
+    ``q_offset``: absolute position of q[0] (for decode: the cache fill,
+    an int or a 0-d tensor on q's device).  Masked logits are the finite
+    -1e30, as in the JAX package, not -inf.  The probabilities are cast to
+    v's dtype before P.V, as in the JAX package.
     """
     sq, hq, hd = q.shape[1], q.shape[2], q.shape[3]
     n_rep = hq // k.shape[2]
@@ -131,9 +135,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal:
         qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
         kpos = torch.arange(k.shape[1], device=q.device)[None, :]
-        logits = torch.where((qpos >= kpos)[None, None], logits,
-                             torch.tensor(-1e30, dtype=torch.float32,
-                                          device=q.device))
+        logits = logits.masked_fill(~(qpos >= kpos)[None, None], -1e30)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return einsum_f32("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
 
@@ -176,12 +178,58 @@ def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                positions: torch.Tensor, *, causal: bool = True
-                ) -> torch.Tensor:
-    """Full self-attention (train / prefill). Returns [B,S,d]."""
+                positions: torch.Tensor, *, causal: bool = True,
+                training: bool = False) -> torch.Tensor:
+    """Full self-attention (train / prefill). Returns [B,S,d].
+
+    ``training=True`` keeps :func:`attention_core` (autograd, the JAX
+    package's training attention); the inference forward goes through
+    ``kernels.flash_attention``: the CUDA kernel on the card, its plain
+    version on the CPU.  The two differ at bf16 by one rounding: the kernel
+    keeps the probabilities in float32 for P.V."""
     q, k, v = _project_qkv(p, cfg, x, positions)
-    out = attention_core(q, k, v, causal=causal)
+    if training:
+        out = attention_core(q, k, v, causal=causal)
+    else:
+        out = flash_attention(q, k, v, causal=causal)
     return einsum_f32("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
+
+
+def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
+               positions: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """One-token decode against a KV cache, updated in place.
+
+    cache: {"k": [B,S,Hkv,hd], "v": [B,S,Hkv,hd], "index": 0-d int32}
+    x: [B,1,d].  The new K/V row is cast to the cache dtype and written at
+    ``index``; attention runs over the whole cache with the causal mask at
+    ``q_offset=index`` (unfilled slots masked), in plain torch as in the
+    JAX package; then ``index`` moves by one.  Returns (y [B,1,d], cache):
+    the same cache tensors, so a Kishu session sees the in-place write.
+    """
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    idx = cache["index"]
+    slot = idx.reshape(1).long()
+    k, v = cache["k"], cache["v"]
+    k.index_copy_(1, slot, k_new.to(k.dtype))
+    v.index_copy_(1, slot, v_new.to(v.dtype))
+    out = attention_core(q, k, v, causal=True, q_offset=idx)
+    y = einsum_f32("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
+    idx.add_(1)
+    return y, cache
+
+
+def gqa_cache_init(cfg: ArchConfig, batch: int, seq: int,
+                   dtype: torch.dtype, device, lead: Shape = ()) -> dict:
+    """Zeroed KV cache (the JAX package's leaves; ``lead`` prepends the
+    stacked-unit axis)."""
+    hd = cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((*lead, batch, seq, cfg.n_kv_heads, hd),
+                         dtype=dtype, device=device),
+        "v": torch.zeros((*lead, batch, seq, cfg.n_kv_heads, hd),
+                         dtype=dtype, device=device),
+        "index": torch.zeros(tuple(lead), dtype=torch.int32, device=device),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,13 @@ backward pass).
 Only the dense family runs: standard RoPE, GQA, optional per-head qk-norm,
 SwiGLU MLP, RMSNorm and the tied or untied unembed.  MLA, MoE, Mamba/SSD,
 hybrid stacks, enc-dec, M-RoPE, frontends and MTP raise
-``NotImplementedError``; decode caches are not ported.
+``NotImplementedError``.
+
+Serving: :func:`forward` with ``training=False`` (the default, as in the
+JAX package) is the prefill, whose attention goes through the flash
+kernel; :func:`init_caches` and :func:`decode_step` run one-token decode
+against KV caches stacked ``[n_units, ...]`` per stage, exactly as the JAX
+package's ``vmap`` lays them out, and updated in place.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from repro_torch.core.serialize import torch_dtype
+from repro_torch.core.session import resolve_device
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig
 
@@ -159,10 +166,12 @@ def _positions_of(batch: dict, cfg: ArchConfig, seq: int, bsz: int,
 
 
 def _apply_layer(p: dict, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, *, training: bool = False
+                 ) -> torch.Tensor:
     """Full-sequence layer: attention then the gated MLP, each residual."""
     h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + layers.gqa_forward(p["attn"], cfg, h, positions)
+    x = x + layers.gqa_forward(p["attn"], cfg, h, positions,
+                               training=training)
     if spec.ffn == "dense":
         h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
         x = x + layers.mlp_forward(p["mlp"], h)
@@ -181,14 +190,14 @@ def _unstack(tree: Any, n: int) -> List[Any]:
 
 
 def _run_stages(stages_params: dict, stage_specs: List[StageSpec],
-                cfg: ArchConfig, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
+                cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
+                *, training: bool = False) -> torch.Tensor:
     for i, stage in enumerate(stage_specs):
         units = _unstack(stages_params[f"stage_{i}"], stage.n_units)
         for unit_params in units:
             for j, spec in enumerate(stage.unit):
                 x = _apply_layer(unit_params[f"sub_{j}"], cfg, spec, x,
-                                 positions)
+                                 positions, training=training)
     return x
 
 
@@ -203,14 +212,19 @@ def embed_inputs(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *,
-            return_aux: bool = False):
+            training: bool = False, return_aux: bool = False):
     """Full-sequence forward. Returns float32 logits [B,S,V] (and an aux
-    dict whose ``moe_aux`` is a float32 zero for the dense family)."""
+    dict whose ``moe_aux`` is a float32 zero for the dense family).
+
+    ``training=False`` (the prefill) sends attention through the flash
+    kernel, which is forward-only; ``training=True`` keeps the plain
+    attention that autograd differentiates."""
     check_supported(cfg)
     x = embed_inputs(cfg, params, batch)
     bsz, seq, _ = x.shape
     positions = _positions_of(batch, cfg, seq, bsz, device=x.device)
-    x = _run_stages(params["stages"], build_stages(cfg), cfg, x, positions)
+    x = _run_stages(params["stages"], build_stages(cfg), cfg, x, positions,
+                    training=training)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(cfg, params, x)
     if return_aux:
@@ -223,3 +237,68 @@ def unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings or "lm_head" not in params:
         return layers.einsum_f32("bsd,vd->bsv", x, params["embed"])
     return layers.einsum_f32("bsd,dv->bsv", x, params["lm_head"])
+
+
+# ---------------------------------------------------------------------------
+# decode (one token against caches)
+# ---------------------------------------------------------------------------
+
+def _init_layer_cache(cfg: ArchConfig, batch: int, seq: int,
+                      dtype: torch.dtype, device, lead=()) -> dict:
+    return {"attn": layers.gqa_cache_init(cfg, batch, seq, dtype, device,
+                                          lead)}
+
+
+def init_caches(cfg: ArchConfig, batch: int, seq: int,
+                dtype: torch.dtype | None = None, device=None) -> dict:
+    """Cache tree: per stage, leaves stacked along ``n_units`` (the JAX
+    package's names, shapes and dtypes; ``index`` int32 ``[n_units]``), on
+    ``device`` (``cuda`` unless the caller names another).  The MLA, SSM
+    and enc-dec (``enc_out``) caches raise with the rest of their
+    families (:func:`check_supported`)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    dtype = dtype or torch_dtype(cfg.dtype)
+    return {"stages": {
+        f"stage_{i}": {f"sub_{j}": _init_layer_cache(
+            cfg, batch, seq, dtype, device, lead=(stage.n_units,))
+            for j in range(len(stage.unit))}
+        for i, stage in enumerate(build_stages(cfg))}}
+
+
+def _decode_layer(p: dict, c: dict, cfg: ArchConfig, spec: LayerSpec,
+                  x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """One layer of one-token decode; ``c`` (the layer's cache) is updated
+    in place."""
+    h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    y, _ = layers.gqa_decode(p["attn"], cfg, h, c["attn"], positions)
+    x = x + y
+    if spec.ffn == "dense":
+        h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        x = x + layers.mlp_forward(p["mlp"], h)
+    return x
+
+
+def decode_step(cfg: ArchConfig, params: dict, caches: dict, batch: dict
+                ) -> Tuple[torch.Tensor, dict]:
+    """One-token decode. batch: {"tokens": [B,1], "index": the cache fill
+    (an int or a 0-d int tensor)}.  Returns (float32 logits [B,1,V],
+    caches): the caches are the same tensors, updated in place."""
+    check_supported(cfg)
+    x = embed_inputs(cfg, params, batch)
+    bsz = x.shape[0]
+    index = batch["index"]
+    # a Python int becomes a device scalar by a fill, not a blocking copy
+    index = index.to(device=x.device, dtype=torch.int32) \
+        if isinstance(index, torch.Tensor) else \
+        torch.full((), int(index), dtype=torch.int32, device=x.device)
+    positions = index.reshape(1, 1).expand(bsz, 1)
+    for i, stage in enumerate(build_stages(cfg)):
+        units_p = _unstack(params["stages"][f"stage_{i}"], stage.n_units)
+        units_c = _unstack(caches["stages"][f"stage_{i}"], stage.n_units)
+        for unit_p, unit_c in zip(units_p, units_c):
+            for j, spec in enumerate(stage.unit):
+                x = _decode_layer(unit_p[f"sub_{j}"], unit_c[f"sub_{j}"],
+                                  cfg, spec, x, positions)
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(cfg, params, x), caches

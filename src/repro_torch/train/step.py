@@ -1,5 +1,6 @@
-"""Train-step functions of the port (the JAX package's ``train/step.py``,
-training only): loss, gradients by autograd, and the in-place AdamW step.
+"""Step functions of the port (the JAX package's ``train/step.py``): loss,
+gradients by autograd and the in-place AdamW step; prefill; and one-token
+decode.
 
 ``train_step`` consumes a TrainState dict — exactly the tree the Kishu
 session flattens into its namespace (params, AdamW moments, step, rng) —
@@ -54,7 +55,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def make_loss_fn(cfg: ArchConfig, *, moe_aux_coef: float = 0.01):
     def loss_fn(params, batch):
-        logits, aux = lm.forward(cfg, params, batch, return_aux=True)
+        logits, aux = lm.forward(cfg, params, batch, training=True,
+                                 return_aux=True)
         loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
         total = loss + moe_aux_coef * aux["moe_aux"]
         return total, {"loss": loss, "moe_aux": aux["moe_aux"]}
@@ -94,3 +96,25 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
         return state, metrics
 
     return train_step
+
+
+def make_prefill_step(cfg: ArchConfig):
+    """``prefill_step(params, batch) -> logits [B,S,V]`` (float32,
+    sampling-ready): the inference forward under ``no_grad``, whose
+    attention is the flash kernel on the card."""
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            return lm.forward(cfg, params, batch, training=False)
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig):
+    """``serve_step(params, caches, batch) -> (next_token [B,1] int32,
+    caches)``: greedy decode of one token; the caches are updated in
+    place."""
+    def serve_step(params, caches, batch):
+        with torch.no_grad():
+            logits, caches = lm.decode_step(cfg, params, caches, batch)
+            nxt = logits[..., :cfg.vocab_size].argmax(dim=-1)
+        return nxt.to(torch.int32), caches
+    return serve_step

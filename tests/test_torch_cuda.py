@@ -189,8 +189,10 @@ def test_cuda_session_matches_cpu_session(dev):
             # the restored tensors verified exactly on the card (block_diff)
             for n in s.ns.names():
                 assert exact_dirty_indices(s.ns[n], last[n], 1 << 16) == [], n
-            assert all(v > 0 for v in _lib.launches().values()), \
-                _lib.launches()
+            # every kernel of the commit -> checkout loop launched
+            # (flash_attention belongs to the serving path)
+            assert all(v > 0 for k, v in _lib.launches().items()
+                       if k != "flash_attention"), _lib.launches()
         out[device] = (dict(store.chunks), back,
                        {n: s.ns[n].cpu() for n in s.ns.names()})
         s.close()
@@ -308,3 +310,261 @@ def test_trainer_session_checkouts_verify_on_the_card(dev):
     counts = _lib.launches()
     assert counts["block_diff"] > 0 and counts["chunk_hash"] > 0 \
         and counts["delta_pack"] > 0, counts
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the serving path on the card
+# ---------------------------------------------------------------------------
+
+# kernel against plain on the card: float32 within atol 1e-5 / rtol 1e-4
+# (summation order); bf16 within atol 1e-5 / rtol 2**-7, one bf16 unit in
+# the last place: both compute the same float32 value up to summation
+# order, and its one rounding to bf16 may land on neighbouring values
+FLASH_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),
+             torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7)}
+
+
+def _qkv(b, s, hq, hkv, hd, dtype, dev, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn((b, s, h, hd), generator=g).to(dtype).to(dev)
+            for h in (hq, hkv, hkv)]
+
+
+def _flash_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[want.dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n_rep", [1, 3])
+@pytest.mark.parametrize("s", [1, 64, 130])
+def test_flash_kernel_matches_plain(dev, dtype, hd, causal, n_rep, s):
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = _qkv(2, s, 2 * n_rep, 2, hd, dtype, dev, seed=hd + s)
+    before = _lib.launches()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal)
+    assert _lib.launches()["flash_attention"] == before + 1
+    _flash_close(got, flash_attention_plain(q, k, v, causal=causal))
+    if causal:
+        assert torch.equal(got[:, 0, :], v[:, 0].repeat_interleave(n_rep, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_head_dim_256_and_long_ragged(dev, dtype):
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    for shape in ((1, 100, 4, 2, 256), (1, 1037, 6, 2, 64)):
+        q, k, v = _qkv(*shape, dtype, dev, seed=shape[1])
+        _flash_close(flash_attention_cuda(q, k, v),
+                     flash_attention_plain(q, k, v))
+
+
+def test_flash_kernel_reads_strided_inputs_in_place(dev):
+    """q, k and v sliced out of one fused projection, a head-major layout
+    seen through a transpose, and a dim stride of 2: read through their
+    strides, never copied."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    b, s, hq, hkv, hd = 2, 77, 6, 2, 32
+    g = torch.Generator(device="cpu").manual_seed(5)
+    fused = torch.randn((b, s, hq + 2 * hkv, hd), generator=g).to(dev)
+    q, k, v = fused.split([hq, hkv, hkv], dim=2)
+    assert not q.is_contiguous()
+    _flash_close(flash_attention_cuda(q, k, v),
+                 flash_attention_plain(q.contiguous(), k.contiguous(),
+                                       v.contiguous()))
+    heads_first = torch.randn((b, hq, s, hd), generator=g).to(dev)
+    qt = heads_first.transpose(1, 2)
+    wide = torch.randn((b, s, hkv, 2 * hd), generator=g).to(dev)
+    kt = wide[..., ::2]
+    _flash_close(flash_attention_cuda(qt, kt, v, causal=False),
+                 flash_attention_plain(qt.contiguous(), kt.contiguous(),
+                                       v.contiguous(), causal=False))
+
+
+def test_flash_kernel_writes_no_row_past_s(dev):
+    """The ragged last tile's rows past S are never written: the output is
+    a slice of a larger guarded buffer, through the C entry point."""
+    import numpy as np
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    b, s, hq, hkv, hd = 2, 70, 4, 2, 64
+    q, k, v = _qkv(b, s, hq, hkv, hd, torch.float32, dev, seed=9)
+    big = torch.full((b, s + 64, hq, hd), 7.0, device=dev)
+    out = big[:, :s]
+    _lib.call("kishu_flash_attention", q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), out.data_ptr(), b, s, hq, hkv, hd, 0, 1,
+              float(1 / np.sqrt(hd)), *q.stride(), *k.stride(), *v.stride(),
+              *out.stride(), _lib.stream_of(q))
+    torch.cuda.synchronize()
+    assert bool((big[:, s:] == 7.0).all())
+    _flash_close(out, flash_attention_plain(q, k, v))
+
+
+def test_flash_launch_failure_raises(dev, monkeypatch):
+    """A failing launch surfaces from ``flash_attention`` and from the
+    prefill; nothing falls back to the plain version."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+    from repro_torch.models import lm
+    from repro_torch.models.config import get_config
+    from repro_torch.models.testing import reduced
+    from repro_torch.train.step import make_prefill_step
+    real = _lib.call
+
+    def failing(fn, *args):
+        if fn == "kishu_flash_attention":
+            raise RuntimeError(f"{fn}: injected CUDA error")
+        return real(fn, *args)
+
+    def no_plain(*args, **kw):
+        raise AssertionError("the card's path reached the plain version")
+
+    monkeypatch.setattr(_lib, "call", failing)
+    monkeypatch.setattr(ops, "flash_attention_plain", no_plain)
+    q, k, v = _qkv(1, 8, 2, 1, 16, torch.float32, dev)
+    with pytest.raises(RuntimeError, match="injected CUDA error"):
+        flash_attention(q, k, v)
+    cfg = reduced(get_config("smollm-360m"), n_layers=2)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    toks = torch.zeros((1, 5), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="injected CUDA error"):
+        make_prefill_step(cfg)(params, {"tokens": toks})
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v)
+
+
+def test_flash_refuses_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _qkv(1, 8, 2, 1, 16, torch.float16, dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_cuda(q, k, v)
+    q, k, v = _qkv(1, 8, 2, 1, 264, torch.float32, dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(q, k, v)
+    q, k, v = _qkv(1, 8, 2, 1, 16, torch.float32, dev)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention_cuda(q.requires_grad_(True), k, v)
+
+
+def test_prefill_on_the_card_launches_once_per_layer(dev):
+    """The card's prefill goes through the kernel once per layer and
+    agrees with the CPU prefill (plain version) and with the card's own
+    decode loop (float32, the JAX consistency bound 2e-3)."""
+    from repro_torch.interop import to_numpy, to_torch
+    from repro_torch.kernels import _lib
+    from repro_torch.models import lm
+    from repro_torch.models.config import get_config
+    from repro_torch.models.testing import reduced
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    cfg = reduced(get_config("qwen3-1.7b"), n_layers=3)
+    cpu_params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    params = to_torch(to_numpy(cpu_params), dev)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=g,
+                         dtype=torch.int32)
+    _lib.reset_launches()
+    full = make_prefill_step(cfg)(params, {"tokens": toks.to(dev)})
+    assert _lib.launches()["flash_attention"] == cfg.n_layers
+    want = make_prefill_step(cfg)(cpu_params, {"tokens": toks})
+    torch.testing.assert_close(full.cpu(), want, atol=1e-4, rtol=1e-4)
+    caches = lm.init_caches(cfg, 2, 9, device=dev)
+    outs = []
+    with torch.no_grad():
+        for t in range(9):
+            lg, caches = lm.decode_step(cfg, params, caches,
+                                        {"tokens": toks[:, t:t + 1].to(dev),
+                                         "index": t})
+            outs.append(lg[:, 0])
+    assert float((full - torch.stack(outs, 1)).abs().max()) < 2e-3
+    nxt, _ = make_decode_step(cfg)(params, lm.init_caches(cfg, 2, 3),
+                                   {"tokens": toks[:, :1].to(dev),
+                                    "index": 0})
+    assert nxt.is_cuda and nxt.dtype == torch.int32
+    assert _lib.launches()["flash_attention"] == cfg.n_layers
+
+
+def test_serve_flow_checkouts_verify_on_the_card(dev):
+    """The examples/serve_batched.py flow on the card, reduced: every
+    rollback to the prefix restores the caches exactly (block_diff), the
+    repeated flavor regenerates the same tokens and caches, flavors
+    differ."""
+    from repro_torch.core import KishuSession, MemoryStore
+    from repro_torch.core.delta import exact_dirty_indices
+    from repro_torch.kernels import _lib
+    from repro_torch.models import lm
+    from repro_torch.models.config import get_config
+    from repro_torch.models.testing import reduced
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    cfg = reduced(get_config("smollm-360m")).replace(dtype="bfloat16")
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    prefill_step, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    b, prefix, gen, cb = 3, 12, 6, 1 << 12
+    prompts = torch.randint(0, cfg.vocab_size, (b, prefix),
+                            generator=torch.Generator().manual_seed(7),
+                            dtype=torch.int32).to(dev)
+
+    def do_prefill(ns):
+        ns["prefill_last_logits"] = prefill_step(
+            params, {"tokens": prompts})[:, -1].clone()
+        caches = lm.init_caches(cfg, b, prefix + gen)
+        tok = prompts[:, :1]
+        for t in range(prefix):
+            tok, caches = decode(params, caches, {"tokens": tok, "index": t})
+            if t + 1 < prefix:
+                tok = prompts[:, t + 1:t + 2]
+        ns.set_tree("caches", caches)
+        ns["last_tok"] = tok
+        ns["pos"] = prefix
+
+    def generate(ns, n, flavor):
+        caches = ns.get_tree("caches")
+        tok, pos, outs = ns["last_tok"], ns["pos"], []
+        for t in range(n):
+            tok, caches = decode(params, caches,
+                                 {"tokens": (tok + flavor) % cfg.vocab_size,
+                                  "index": pos + t})
+            outs.append(tok)
+        ns.set_tree("caches", caches)
+        ns["last_tok"] = tok
+        ns["pos"] = pos + n
+        ns["generated"] = torch.cat(outs, 1)
+
+    def cache_snap(ns):
+        return {n: ns[n].clone() for n in ns.names()
+                if n.startswith("caches/")}
+
+    def verify(ns, snap):
+        for n, t in snap.items():
+            assert ns[n].is_cuda
+            assert exact_dirty_indices(ns[n], t, cb) == [], n
+
+    sess = KishuSession(MemoryStore(), chunk_bytes=cb)
+    sess.register("prefill", do_prefill)
+    sess.register("generate", generate)
+    sess.init_state({})
+    _lib.reset_launches()
+    c0 = sess.run("prefill")
+    assert _lib.launches()["flash_attention"] == cfg.n_layers
+    s0 = cache_snap(sess.ns)
+    tokens, caches = {}, {}
+    for flavor in (1, 2, 3, 1):
+        sess.checkout(c0)
+        verify(sess.ns, s0)
+        sess.run("generate", n=gen, flavor=flavor)
+        if flavor in tokens:
+            assert torch.equal(sess.ns["generated"], tokens[flavor])
+            verify(sess.ns, caches[flavor])
+        else:
+            tokens[flavor] = sess.ns["generated"].clone()
+            caches[flavor] = cache_snap(sess.ns)
+    assert not torch.equal(tokens[1], tokens[2])
+    sess.close()
+    counts = _lib.launches()
+    assert counts["chunk_hash"] > 0 and counts["delta_pack"] > 0 \
+        and counts["block_diff"] > 0, counts

@@ -50,7 +50,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.kernels.delta_codec.ops\n"
             "import repro_torch.kernels.patch_scatter.ops\n"
             "import repro_torch.kernels.block_diff.ops\n"
+            "import repro_torch.kernels.flash_attention.ops\n"
             "import repro_torch.train.loop, repro_torch.launch.train\n"
+            "import repro_torch.launch.serve, repro_torch.models.lm\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
             "       or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
@@ -63,7 +65,9 @@ def test_kernel_modules_build_nothing_at_import(tmp_path, monkeypatch):
     monkeypatch.setenv("KISHU_KERNEL_BUILD_DIR", str(tmp_path / "kbuild"))
     from repro_torch.kernels import _lib
     assert set(_lib.KERNELS) == {"chunk_hash", "delta_pack", "delta_codec",
-                                 "patch_scatter", "block_diff"}
+                                 "patch_scatter", "block_diff",
+                                 "flash_attention"}
+    assert {lib for lib, _ in _lib._SIGNATURES.values()} == set(_lib.KERNELS)
     for name in _lib.KERNELS:
         assert (_lib.CSRC / f"{name}.cu").is_file()
     assert not (tmp_path / "kbuild").exists()
@@ -87,6 +91,7 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     from repro_torch.kernels.delta_pack.ops import delta_pack
     from repro_torch.kernels.patch_scatter.ops import scatter_chunks
     from repro_torch.kernels.block_diff.ops import block_diff
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     import numpy as np
     x = torch.zeros(4096, device="meta")
     with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
@@ -99,3 +104,6 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         scatter_chunks(x, [0], [bytes(4096)], 4096)
     with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
         block_diff(x, x, 4096)
+    qkv = torch.zeros((1, 8, 2, 16), device="meta")
+    with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
+        flash_attention(qkv, qkv, qkv)

@@ -1,0 +1,421 @@
+"""The port's serving path held against the JAX package's, on reduced
+``smollm-360m`` and reduced ``qwen3-1.7b`` (qk-norm), on the CPU.
+
+Parameters come from the JAX package's initialiser and cross as raw bytes
+(``interop.to_torch``); prompts are made with numpy from a seed.  float32
+tolerance: logits atol 1e-4 / rtol 1e-4 and cache K/V atol 1e-5 /
+rtol 1e-4 (the forward test's; the two frameworks sum products in
+different orders); bf16 prefill logits atol 3e-2 (the port's prefill keeps
+the probabilities in float32 for P.V, the JAX forward rounds them to
+bf16).  Prefill against decode within one package: 2e-3, the JAX test's
+bound.  Then the ``examples/serve_batched.py`` flow under Kishu: prefix
+commit, rollback before each generation, and a prefix committed by the JAX
+package's session continued by the port's.
+"""
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+import repro.core as jcore  # noqa: E402
+import repro_torch.core as tcore  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.models.config import get_config as jget  # noqa: E402
+from repro.models.testing import reduced as jreduced  # noqa: E402
+from repro.train import step as jstep  # noqa: E402
+
+from repro_torch.core.serialize import dtype_name  # noqa: E402
+from repro_torch.interop import to_numpy, to_torch  # noqa: E402
+from repro_torch.kernels import _lib  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models import lm as tlm  # noqa: E402
+from repro_torch.models.config import MLAConfig  # noqa: E402
+from repro_torch.models.config import get_config as tget  # noqa: E402
+from repro_torch.models.testing import reduced as treduced  # noqa: E402
+from repro_torch.train import step as tstep  # noqa: E402
+
+ARCHS = ["smollm-360m", "qwen3-1.7b"]
+LOGITS = dict(atol=1e-4, rtol=1e-4)
+KV = dict(atol=1e-5, rtol=1e-4)
+CONSISTENCY = 2e-3
+CB = 1 << 12
+
+
+def _cfgs(arch, **kw):
+    return jreduced(jget(arch)).replace(**kw), \
+        treduced(tget(arch)).replace(**kw)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat(v, name))
+        else:
+            out[name] = v
+    return out
+
+
+def _params(jcfg, seed=0):
+    jp = jlm.init_params(jcfg, jax.random.key(seed))
+    return jp, to_torch(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _tokens(cfg, b, s, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+# ---------------------------------------------------------------------------
+# caches, prefill and decode against the JAX package
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_caches_layout(arch, dtype):
+    jc, tc = _cfgs(arch, dtype=dtype, n_layers=3)
+    want = _flat(jax.tree.map(np.asarray, jlm.init_caches(jc, 2, 11)))
+    got = _flat(tlm.init_caches(tc, 2, 11, device="cpu"))
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        assert tuple(got[name].shape) == w.shape, name
+        assert dtype_name(got[name].dtype) == str(w.dtype), name
+        assert to_numpy(got[name]).tobytes() == w.tobytes(), name
+    k = got["stages/stage_0/sub_0/attn/k"]
+    assert tuple(k.shape) == (3, 2, 11, tc.n_kv_heads, tc.resolved_head_dim)
+    assert got["stages/stage_0/sub_0/attn/index"].dtype == torch.int32
+
+
+def test_init_caches_defaults_to_the_card():
+    _, tc = _cfgs("smollm-360m")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tlm.init_caches(tc, 1, 4)
+
+
+@pytest.mark.parametrize("kw", [{"mla": MLAConfig()}, {"family": "ssm"},
+                                {"enc_dec": True}],
+                         ids=lambda kw: "-".join(kw))
+def test_unported_caches_raise(kw):
+    """MLA, SSM and enc-dec (``enc_out``) caches are not ported."""
+    cfg = treduced(tget("smollm-360m")).replace(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 10"):
+        tlm.init_caches(cfg, 1, 4, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_logits_match_jax(arch):
+    jc, tc = _cfgs(arch)
+    jp, tp = _params(jc)
+    toks = _tokens(jc, 2, 13, seed=1)
+    want = jstep.make_prefill_step(jc)(jp, {"tokens": jnp.asarray(toks)})
+    got = tstep.make_prefill_step(tc)(tp, {"tokens": torch.from_numpy(toks)})
+    assert got.shape == (2, 13, jc.padded_vocab) and got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(want), **LOGITS)
+
+
+def test_prefill_logits_match_jax_bf16():
+    jc, tc = _cfgs("smollm-360m", dtype="bfloat16")
+    jp, tp = _params(jc, seed=4)
+    toks = _tokens(jc, 2, 13, seed=5)
+    want = jstep.make_prefill_step(jc)(jp, {"tokens": jnp.asarray(toks)})
+    got = tstep.make_prefill_step(tc)(tp, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(_np(got), _np(want), atol=3e-2, rtol=0)
+
+
+def _decode_both(jc, tc, jp, tp, toks, cache_len):
+    b, s = toks.shape
+    jcache = jlm.init_caches(jc, b, cache_len)
+    tcache = tlm.init_caches(tc, b, cache_len, device="cpu")
+    jl, tl = [], []
+    for t in range(s):
+        lg, jcache = jlm.decode_step(
+            jc, jp, jcache, {"tokens": jnp.asarray(toks[:, t:t + 1]),
+                             "index": jnp.asarray(t, jnp.int32)})
+        jl.append(lg[:, 0])
+        with torch.no_grad():
+            tg, tcache2 = tlm.decode_step(
+                tc, tp, tcache, {"tokens": torch.from_numpy(
+                    toks[:, t:t + 1].copy()), "index": t})
+        assert tcache2 is tcache                    # updated in place
+        tl.append(tg[:, 0])
+    return jnp.stack(jl, 1), torch.stack(tl, 1), jcache, tcache
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_teacher_forced_matches_jax(arch):
+    jc, tc = _cfgs(arch)
+    jp, tp = _params(jc)
+    toks = _tokens(jc, 2, 9, seed=2)
+    jl, tl, jcache, tcache = _decode_both(jc, tc, jp, tp, toks, 12)
+    np.testing.assert_allclose(_np(tl), _np(jl), **LOGITS)
+    want = _flat(jax.tree.map(np.asarray, jcache))
+    got = _flat(to_numpy(tcache))
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        g = got[name]
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name.endswith("index"):
+            assert g.tobytes() == w.tobytes() and set(g.tolist()) == {9}
+        else:
+            np.testing.assert_allclose(g[:, :, :9], w[:, :, :9], **KV)
+            # the unfilled slots stay zero bytes in both packages
+            assert g[:, :, 9:].tobytes() == w[:, :, 9:].tobytes() \
+                == bytes(g[:, :, 9:].nbytes)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_consistency(arch):
+    """The port's prefill (flash attention) and its decode loop (cached
+    attention) give the same logits, as the JAX package's do."""
+    _, tc = _cfgs(arch)
+    tp = tlm.init_params(tc, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(tc, 2, 8, seed=2))
+    full = tstep.make_prefill_step(tc)(tp, {"tokens": toks})
+    caches = tlm.init_caches(tc, 2, 8, device="cpu")
+    outs = []
+    with torch.no_grad():
+        for t in range(8):
+            lg, caches = tlm.decode_step(tc, tp, caches,
+                                         {"tokens": toks[:, t:t + 1],
+                                          "index": t})
+            outs.append(lg[:, 0])
+    err = float((full - torch.stack(outs, 1)).abs().max())
+    assert err < CONSISTENCY, f"{arch}: prefill/decode diverge by {err}"
+
+
+def test_decode_step_argmax_and_vocab_mask():
+    jc, tc = _cfgs("smollm-360m")
+    assert jc.padded_vocab > jc.vocab_size         # padding columns exist
+    jp, tp = _params(jc, seed=3)
+    toks = _tokens(jc, 3, 1, seed=4)
+    jn, _ = jstep.make_decode_step(jc)(
+        jp, jlm.init_caches(jc, 3, 4),
+        {"tokens": jnp.asarray(toks), "index": jnp.asarray(0, jnp.int32)})
+    tn, caches = tstep.make_decode_step(tc)(
+        tp, tlm.init_caches(tc, 3, 4, device="cpu"),
+        {"tokens": torch.from_numpy(toks), "index": 0})
+    assert tn.dtype == torch.int32 and tuple(tn.shape) == (3, 1)
+    assert np.array_equal(tn.numpy(), np.asarray(jn))
+    assert int(tn.max()) < jc.vocab_size
+    assert caches["stages"]["stage_0"]["sub_0"]["attn"]["index"].tolist() \
+        == [1] * jc.n_layers
+
+
+def test_jax_cache_tree_crosses_byte_for_byte():
+    """``to_torch`` carries a JAX cache tree (after decode steps, with its
+    int32 ``index`` leaves) to the port's layout bit for bit, and the port
+    decodes on from it as the JAX package does."""
+    jc, tc = _cfgs("qwen3-1.7b", n_layers=2)
+    jp, tp = _params(jc, seed=5)
+    toks = _tokens(jc, 2, 7, seed=6)
+    jcache = jlm.init_caches(jc, 2, 8)
+    for t in range(5):
+        _, jcache = jlm.decode_step(jc, jp, jcache,
+                                    {"tokens": jnp.asarray(toks[:, t:t + 1]),
+                                     "index": jnp.asarray(t, jnp.int32)})
+    host = jax.tree.map(np.asarray, jcache)
+    tcache = to_torch(host, "cpu")
+    back = _flat(to_numpy(tcache))
+    for name, w in _flat(host).items():
+        assert back[name].dtype == w.dtype and back[name].tobytes() \
+            == w.tobytes(), name
+    for t in (5, 6):
+        jl, jcache = jlm.decode_step(jc, jp, jcache,
+                                     {"tokens": jnp.asarray(toks[:, t:t + 1]),
+                                      "index": jnp.asarray(t, jnp.int32)})
+        with torch.no_grad():
+            tl, tcache = tlm.decode_step(
+                tc, tp, tcache, {"tokens": torch.from_numpy(
+                    toks[:, t:t + 1].copy()), "index": t})
+        np.testing.assert_allclose(_np(tl), _np(jl), **LOGITS)
+
+
+def test_serve_launcher_on_the_cpu(capsys):
+    tserve.main(["--reduced", "--device", "cpu", "--batch", "2",
+                 "--prompt-len", "6", "--gen", "4"])
+    out = capsys.readouterr().out
+    assert "arch=smollm-360m batch=2 generated 4 tokens/seq in" in out
+    assert "tok/s incl prefill" in out and "sample:" in out
+
+
+def test_serve_launcher_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--reduced"])
+
+
+# ---------------------------------------------------------------------------
+# serving under Kishu: the examples/serve_batched.py flow
+# ---------------------------------------------------------------------------
+
+B, PREFIX, GEN = 3, 10, 6
+
+
+def _torch_cells(tc, tp):
+    decode = tstep.make_decode_step(tc)
+
+    def prefill(ns, seed):
+        caches = tlm.init_caches(tc, B, PREFIX + GEN, device="cpu")
+        toks = torch.from_numpy(_tokens(tc, B, PREFIX, seed))
+        tok = toks[:, :1]
+        for t in range(PREFIX):
+            tok, caches = decode(tp, caches, {"tokens": tok, "index": t})
+            if t + 1 < PREFIX:
+                tok = toks[:, t + 1:t + 2]
+        ns.set_tree("caches", caches)
+        ns["last_tok"] = tok
+        ns["pos"] = PREFIX
+
+    def generate(ns, n, flavor):
+        caches = ns.get_tree("caches")
+        tok = torch.as_tensor(np.asarray(ns["last_tok"]))
+        pos = ns["pos"]
+        outs, logits = [], []
+        with torch.no_grad():
+            for t in range(n):
+                lg, caches = tlm.decode_step(
+                    tc, tp, caches, {"tokens": (tok + flavor) % tc.vocab_size,
+                                     "index": pos + t})
+                tok = lg[..., :tc.vocab_size].argmax(-1).to(torch.int32)
+                outs.append(tok)
+                logits.append(lg[:, 0])
+        ns.set_tree("caches", caches)
+        ns["last_tok"] = tok
+        ns["pos"] = pos + n
+        ns["generated"] = torch.cat(outs, 1)
+        ns["logits"] = torch.stack(logits, 1)
+    return prefill, generate
+
+
+def _jax_cells(jc, jp):
+    def prefill(ns, seed):
+        caches = jlm.init_caches(jc, B, PREFIX + GEN)
+        toks = jnp.asarray(_tokens(jc, B, PREFIX, seed))
+        tok = toks[:, :1]
+        for t in range(PREFIX):
+            lg, caches = jlm.decode_step(jc, jp, caches, {
+                "tokens": tok, "index": jnp.asarray(t, jnp.int32)})
+            tok = jnp.argmax(lg[..., :jc.vocab_size], -1).astype(jnp.int32)
+            if t + 1 < PREFIX:
+                tok = toks[:, t + 1:t + 2]
+        ns.set_tree("caches", caches)
+        ns["last_tok"] = np.asarray(tok)
+        ns["pos"] = PREFIX
+
+    def generate(ns, n, flavor):
+        caches = ns.get_tree("caches")
+        tok = jnp.asarray(ns["last_tok"])
+        pos = ns["pos"]
+        outs, logits = [], []
+        for t in range(n):
+            lg, caches = jlm.decode_step(jc, jp, caches, {
+                "tokens": (tok + flavor) % jc.vocab_size,
+                "index": jnp.asarray(pos + t, jnp.int32)})
+            tok = jnp.argmax(lg[..., :jc.vocab_size], -1).astype(jnp.int32)
+            outs.append(np.asarray(tok))
+            logits.append(np.asarray(lg[:, 0]))
+        ns.set_tree("caches", caches)
+        ns["last_tok"] = np.asarray(tok)
+        ns["pos"] = pos + n
+        ns["generated"] = np.concatenate(outs, 1)
+        ns["logits"] = np.stack(logits, 1)
+    return prefill, generate
+
+
+def _cache_bytes(ns):
+    return {n: to_numpy(ns[n]).tobytes() for n in ns.names()
+            if n.startswith("caches/")}
+
+
+@pytest.mark.parametrize("kind", ["memory", "dir"])
+def test_serve_batched_flow(tmp_path, kind):
+    _, tc = _cfgs("smollm-360m")
+    tp = tlm.init_params(tc, torch.Generator().manual_seed(0))
+    uri = "memory://" if kind == "memory" else f"dir://{tmp_path}/cas"
+    sess = tcore.KishuSession(tcore.open_store(uri), chunk_bytes=CB,
+                              device="cpu")
+    prefill, generate = _torch_cells(tc, tp)
+    sess.register("prefill", prefill)
+    sess.register("generate", generate)
+    sess.init_state({})
+    prefix = sess.run("prefill", seed=7)
+    want = _cache_bytes(sess.ns)
+    assert len(want) == 3 and sess.ns["pos"] == PREFIX
+    results, caches = {}, {}
+    for flavor in (1, 2, 3, 1):
+        sess.checkout(prefix)
+        assert _cache_bytes(sess.ns) == want          # bit for bit
+        assert sess.ns["pos"] == PREFIX
+        sess.run("generate", n=GEN, flavor=flavor)
+        got = (sess.ns["generated"].clone(), _cache_bytes(sess.ns))
+        if flavor in results:                          # the repeated flavor
+            assert torch.equal(got[0], results[flavor])
+            assert got[1] == caches[flavor]
+        results[flavor], caches[flavor] = got
+    assert not torch.equal(results[1], results[2])     # the example's check
+    assert caches[1] != caches[2] and caches[2] != caches[3]
+    sess.checkout(prefix)
+    assert _cache_bytes(sess.ns) == want
+    sess.close()
+
+
+def test_jax_prefix_checks_out_in_the_port(tmp_path):
+    """A prefix committed by the JAX package's session is checked out by a
+    port session, which decodes on within float32 tolerance of the JAX
+    package decoding on from the same prefix."""
+    jc, tc = _cfgs("qwen3-1.7b")
+    jp, tp = _params(jc, seed=1)
+    uri = f"dir://{tmp_path}/cas"
+    js = jcore.KishuSession(jcore.open_store(uri), chunk_bytes=CB)
+    jpre, jgen = _jax_cells(jc, jp)
+    js.register("prefill", jpre)
+    js.register("generate", jgen)
+    js.init_state({})
+    prefix = js.run("prefill", seed=11)
+    want = {n: np.asarray(js.ns[n]).tobytes() for n in js.ns.names()
+            if n.startswith("caches/")}
+    js.run("generate", n=GEN, flavor=2)
+    jtoks, jlogits = js.ns["generated"], js.ns["logits"]
+    js.close()
+
+    ts = tcore.KishuSession(tcore.open_store(uri), chunk_bytes=CB,
+                            device="cpu")
+    tpre, tgen = _torch_cells(tc, tp)
+    ts.register("prefill", tpre)
+    ts.register("generate", tgen)
+    ts.checkout(prefix)
+    assert _cache_bytes(ts.ns) == want
+    assert all(isinstance(ts.ns[n], torch.Tensor) for n in want)
+    ts.run("generate", n=GEN, flavor=2)
+    np.testing.assert_allclose(_np(ts.ns["logits"]), jlogits, **LOGITS)
+    assert np.array_equal(ts.ns["generated"].numpy(), jtoks)
+    ts.close()
+
+
+def test_serving_never_builds_a_kernel_on_the_cpu(monkeypatch):
+    def refuse(*args, **kw):
+        raise AssertionError("the CPU path reached the kernel library")
+
+    for name in ("call", "_lib", "build_all", "note_launch"):
+        monkeypatch.setattr(_lib, name, refuse)
+    _, tc = _cfgs("smollm-360m", n_layers=2)
+    tp = tlm.init_params(tc, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(tc, 2, 5, seed=0))
+    tstep.make_prefill_step(tc)(tp, {"tokens": toks})
+    tstep.make_decode_step(tc)(tp, tlm.init_caches(tc, 2, 5, device="cpu"),
+                               {"tokens": toks[:, :1], "index": 0})
