@@ -15,7 +15,11 @@ Phase 1  holds every kernel against its plain torch version on the card at
          (patch_scatter, block_diff).  flash_attention is held within a
          stated tolerance at Phase 5's prefill shape (bf16, 8 x 512, 15/5
          heads of 64, causal) and six more (float32, full attention, no
-         GQA, head dim 128, ragged S, S 4096), and timed beside SDPA.
+         GQA, head dim 128, ragged S, S 4096) on each of its routes (bf16:
+         the tensor-core route "tc" and the FMA route; float32: FMA), and
+         timed beside SDPA.  patch_scatter, index_copy_, both flash routes
+         and SDPA are timed by device time (CUDA-graph replay, 5 rounds in
+         turns; median and range) beside the host loop of earlier runs.
 Phase 2  the main path: a ``KishuSession`` on a ``dir://`` store commits a
          SmolLM-360M-shaped fine-tuning state (fp32 params + AdamW m and v,
          870 tensors, 4.34 GB, random from a seeded CUDA generator), runs an
@@ -43,7 +47,8 @@ Phase 5  the serving path (examples/serve_batched.py on the card):
          generations of 64 tokens (flavors 1, 2, 3, then 1 again) each
          start from a checkout of the prefix that block_diff verifies
          exact; the repeated flavor must give the same tokens and caches.
-         flash_attention's launch count is read from this phase.
+         flash_attention's launch count is read from this phase, and all
+         32 prefill launches must take the tc route.
 
 Output: per-phase lines, one JSON line of kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  The full record goes to
@@ -157,6 +162,50 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fns: dict, calls: int, rounds: int = 5) -> dict:
+    """Device time per call of each function in ``fns`` (name -> fn): its
+    ``calls`` calls are captured in one CUDA graph, and each graph's replay
+    is timed with CUDA events, ``rounds`` times in turns (a, b, ..., b, a),
+    so two samples a round.  The host's enqueue is outside the timed span.
+    Returns name -> {median, min, max, samples} in ms per call."""
+    import statistics
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()                      # warm-up off the capture
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        g.replay()
+        graphs[name] = g
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    samples: dict = {name: [] for name in fns}
+    order = list(fns)
+    for _ in range(rounds):
+        for name in order + order[::-1]:
+            start.record()
+            graphs[name].replay()
+            end.record()
+            end.synchronize()
+            samples[name].append(start.elapsed_time(end) / calls)
+    del graphs
+    torch.cuda.synchronize()
+    return {name: {"median": statistics.median(v), "min": min(v),
+                   "max": max(v), "samples": v}
+            for name, v in samples.items()}
+
+
+def spread(d: dict) -> str:
+    return f"{d['median']:.4f} ms [{d['min']:.4f}-{d['max']:.4f}]"
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S):
@@ -312,19 +361,25 @@ def phase1(torch, dev) -> list:
     check(torch.equal(a, b), "index_copy_ disagrees with the scatter")
     k_rows = idx.numel()
     b_ms, b_by = bound(2 * k_rows * CB + 4 * k_rows, 0)
+    scatter = lambda: patch_scatter_cuda(a, CB, idx, kbuf)      # noqa: E731
+    copy = lambda: words_view.index_copy_(0, lib_idx, kbuf)    # noqa: E731
+    dev_t = device_ms(torch, {"kernel": scatter, "library": copy}, 50)
     rows_out.append({
         "name": "patch_scatter", "route": "cuda",
         "source": "src/repro_torch/csrc/patch_scatter.cu",
         "replaces": "src/repro/kernels/patch_scatter/kernel.py:55",
         "max_abs_err": err,
-        "ms": time_ms(torch, lambda: patch_scatter_cuda(a, CB, idx, kbuf),
-                      50),
+        "ms": dev_t["kernel"]["median"],
         "plain_ms": time_ms(torch, lambda: patch_scatter_plain(
             b, CB, idx_list, kbuf), 10),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(torch, lambda: words_view.index_copy_(
-            0, lib_idx, kbuf), 50),
+        "library_ms": dev_t["library"]["median"],
+        "host_ms": time_ms(torch, scatter, 50),
+        "host_library_ms": time_ms(torch, copy, 50),
+        "device": dev_t,
         "shape": f"{k_rows} chunks of 1 MiB into fp32 [{VOCAB}, {D_MODEL}]"})
+    check(torch.equal(a, b), "patch_scatter / index_copy_ replays changed "
+                             "the bytes")
     # -- block_diff: the embedding before and after the slice re-init (the
     #    shape Phase 4 verifies), a stacked bf16 weight, ragged / unaligned
     kf = block_diff_cuda(u8, u8b, CB)
@@ -364,10 +419,16 @@ def phase1(torch, dev) -> list:
         "shape": f"fp32 [{VOCAB}, {D_MODEL}] vs its re-init, {kcount} of {n} "
                  f"chunks of 1 MiB differ"})
     for r in rows_out:
+        if "device" in r:
+            times = (f"kernel device {spread(r['device']['kernel'])}, host "
+                     f"loop {r['host_ms']:.4f} ms; library device "
+                     f"{spread(r['device']['library'])}, host loop "
+                     f"{r['host_library_ms']:.4f} ms")
+        else:
+            times = (f"kernel {r['ms']:.4f} ms, library {r['library_ms']}")
         print(f"phase1 {r['name']}: bit-identical to plain; {r['shape']}; "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-              f"library {r['library_ms']}", flush=True)
+              f"{times}; plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     return rows_out
 
 
@@ -388,11 +449,16 @@ def flash_cases(torch) -> list:
 
 def phase1_flash(torch, dev) -> dict:
     """The flash kernel against its plain version at Phase 5's prefill
-    shape and six more; kernel, plain and SDPA times and the bound of
-    each."""
+    shape and six more, on each route that takes the inputs (bf16: the
+    tensor-core route "tc" and the FMA route; float32: FMA only); device
+    and host-loop times of each route and of SDPA, the plain version's
+    time and the bound of each."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cuda,
+                                                     flash_attention_plain,
+                                                     flash_route)
     # tolerance against the plain version: float32 atol 1e-5 / rtol 1e-4
     # (summation order); bf16 atol 1e-5 / rtol 2**-7, one unit in the last
     # place: both compute one float32 value up to summation order, and its
@@ -403,51 +469,72 @@ def phase1_flash(torch, dev) -> dict:
     for label, b, s, hq, hkv, hd, dtype, causal in flash_cases(torch):
         q, k, v = (torch.randn((b, s, h, hd), device=dev, generator=g)
                    .to(dtype) for h in (hq, hkv, hkv))
-        got = flash_attention_cuda(q, k, v, causal=causal)
+        want_route = "tc" if dtype == torch.bfloat16 else "fma"
+        check(flash_route(q, k, v) == want_route,
+              f"flash_attention {label}: route {flash_route(q, k, v)}")
+        before = _lib.route_launches()["flash_attention"][want_route]
+        flash_attention(q, k, v, causal=causal)
+        check(_lib.route_launches()["flash_attention"][want_route]
+              == before + 1, f"flash_attention {label}: the default call "
+                             f"did not take the {want_route} route")
         want = flash_attention_plain(q, k, v, causal=causal).float()
-        diff = (got.float() - want).abs()
         atol, rtol = tol[dtype]
-        err = float(diff.max())
-        check(bool((diff <= atol + rtol * want.abs()).all()),
-              f"flash_attention {label}: max abs error {err} outside "
-              f"atol {atol} + rtol {rtol}")
-        check(not causal or torch.equal(
-            got[:, 0], v[:, 0].repeat_interleave(hq // hkv, dim=1)),
-            f"flash_attention {label}: causal row 0 is not v[0]")
+        routes = ("tc", "fma") if want_route == "tc" else ("fma",)
+        errs = {}
+        for route in routes:
+            got = flash_attention_cuda(q, k, v, causal=causal, route=route)
+            diff = (got.float() - want).abs()
+            errs[route] = float(diff.max())
+            check(bool((diff <= atol + rtol * want.abs()).all()),
+                  f"flash_attention {label} {route}: max abs error "
+                  f"{errs[route]} outside atol {atol} + rtol {rtol}")
+            check(not causal or torch.equal(
+                got[:, 0], v[:, 0].repeat_interleave(hq // hkv, dim=1)),
+                f"flash_attention {label} {route}: causal row 0 is not v[0]")
+            del got, diff
         pairs = s * (s + 1) // 2 if causal else s * s
         flops = 4 * b * hq * hd * pairs
         nbytes = b * s * (2 * hq + 2 * hkv) * hd * q.element_size()
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S
                            if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        fns = {r: (lambda r=r: flash_attention_cuda(q, k, v, causal=causal,
+                                                    route=r))
+               for r in routes}
+        fns["sdpa"] = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
         iters = 5 if s > 1024 else 20
+        dev_t = device_ms(torch, fns, iters)
         checks.append({
             "label": label, "shape": [b, s, hq, hkv, hd],
             "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-            "max_abs_err": err, "atol": atol, "rtol": rtol,
-            "ms": time_ms(torch, lambda: flash_attention_cuda(
-                q, k, v, causal=causal), iters),
+            "route": want_route, "max_abs_err": errs[want_route],
+            "max_abs_err_by_route": errs, "atol": atol, "rtol": rtol,
+            "ms": dev_t[want_route]["median"],
+            "library_ms": dev_t["sdpa"]["median"],
+            "device": dev_t,
+            "host": {n: time_ms(torch, fn, iters) for n, fn in fns.items()},
             "plain_ms": time_ms(torch, lambda: flash_attention_plain(
                 q, k, v, causal=causal), 3),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True), iters),
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
             "bytes": nbytes})
-        del q, k, v, got, want, diff, qt, kt, vt
+        del q, k, v, want, qt, kt, vt, fns
     for c in checks:
+        times = "; ".join(
+            f"{n} device {spread(c['device'][n])}, host loop "
+            f"{c['host'][n]:.4f} ms" for n in c["device"])
         print(f"phase1 flash_attention {c['label']}: B,S,Hq,Hkv,hd "
               f"{c['shape']} {c['dtype']} causal={c['causal']}; max abs err "
-              f"{c['max_abs_err']:.3g} (atol {c['atol']} rtol {c['rtol']}); "
-              f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, "
-              f"sdpa {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']})", flush=True)
+              f"{c['max_abs_err_by_route']} (atol {c['atol']} rtol "
+              f"{c['rtol']}); {times}; plain {c['plain_ms']:.3f} ms, bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
     main = checks[0]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
             **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")},
-            "shape": f"bf16 B,S,Hq,Hkv,hd {main['shape']} causal",
+            "shape": f"bf16 B,S,Hq,Hkv,hd {main['shape']} causal, tc route",
             "checks": checks}
 
 
@@ -887,6 +974,7 @@ def phase5(torch, dev, workdir: Path) -> dict:
         torch.cuda.synchronize()
         rec["prefill_step_s"] = time.perf_counter() - t0
         rec["prefill_step_launches"] = _lib.launches()["flash_attention"]
+        rec["prefill_step_routes"] = _lib.route_launches()["flash_attention"]
         check(tuple(logits.shape) == (b, plen, cfg.padded_vocab)
               and logits.dtype == torch.float32
               and bool(torch.isfinite(logits).all()),
@@ -971,6 +1059,9 @@ def phase5(torch, dev, workdir: Path) -> dict:
         check(rec["prefill_step_launches"] == cfg.n_layers,
               f"prefill launched flash {rec['prefill_step_launches']} "
               f"times, want {cfg.n_layers}")
+        check(rec["prefill_step_routes"] == {"tc": cfg.n_layers, "fma": 0},
+              f"prefill flash routes {rec['prefill_step_routes']}, want "
+              f"all {cfg.n_layers} on tc")
         check(rec["prefill_decode_max_abs_err"] <= logit_bound,
               f"prefill and decode logits differ by "
               f"{rec['prefill_decode_max_abs_err']} > {logit_bound}")
@@ -1024,7 +1115,8 @@ def phase5(torch, dev, workdir: Path) -> dict:
           flush=True)
     print(f"phase5 prefill_step: {rec['prefill_step_s']:.3f} s "
           f"({rec['prefill_tok_s']:.0f} tok/s, "
-          f"{rec['prefill_step_launches']} flash launches); decode-loop "
+          f"{rec['prefill_step_launches']} flash launches, by route "
+          f"{rec['prefill_step_routes']}); decode-loop "
           f"prefill {rec['decode_prefill_s']:.3f} s "
           f"({rec['decode_prefill_tok_s']:.0f} tok/s); logits max abs diff "
           f"{rec['prefill_decode_max_abs_err']:.4f} (mean "
@@ -1077,7 +1169,7 @@ def main() -> int:
           f"in {build_s:.2f} s", flush=True)
     for log in sorted(_lib.build_dir().glob("*.log")):
         for line in log.read_text(errors="replace").splitlines():
-            if "registers" in line:
+            if "registers" in line and "Used" in line or "spill" in line:
                 print(f"phase0 {log.stem.split('-')[0]}: {line.strip()}")
 
     record: dict = {"card": smi, "device": torch.cuda.get_device_name(0),

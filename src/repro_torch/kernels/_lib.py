@@ -11,7 +11,8 @@ and spills is kept beside each library as ``<lib>.log``.
 Wrappers pass ``data_ptr()`` pointers and PyTorch's current stream; every
 C entry point returns ``cudaGetLastError()`` and :func:`call` raises when it
 is not 0.  :func:`note_launch` is the one place a wrapper's launch count
-moves: once per wrapper call that launched its kernel.
+moves: once per wrapper call that launched its kernel (and, for a kernel
+with several routes, the count of the route it took).
 """
 from __future__ import annotations
 
@@ -49,11 +50,18 @@ _SIGNATURES: Dict[str, Tuple[str, List]] = {
     "kishu_flash_attention": ("flash_attention",
                               [_P] * 4 + [_I] * 7 + [_F] + [_LL] * 16
                               + [_P]),
+    # q, k, v, o; B, S, Hq, Hkv, hd, causal; scale; 4 x (b, s, h) strides
+    "kishu_flash_attention_tc": ("flash_attention",
+                                 [_P] * 4 + [_I] * 6 + [_F] + [_LL] * 12
+                                 + [_P]),
 }
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# kernel -> route -> launches, for kernels with more than one route
+_routes: Dict[str, Dict[str, int]] = {"flash_attention": {"tc": 0,
+                                                          "fma": 0}}
 
 
 def build_dir() -> Path:
@@ -158,9 +166,13 @@ def splits_for(n_rows: int, row_bytes: int) -> int:
     return max(1, min(by_fill, by_size))
 
 
-def note_launch(name: str) -> None:
+def note_launch(name: str, route: str = "") -> None:
+    """Count one launch of kernel ``name`` (and of its ``route``, for a
+    kernel with several)."""
     with _lock:
         _launches[name] += 1
+        if route:
+            _routes[name][route] += 1
 
 
 def launches() -> Dict[str, int]:
@@ -168,7 +180,16 @@ def launches() -> Dict[str, int]:
         return dict(_launches)
 
 
+def route_launches() -> Dict[str, Dict[str, int]]:
+    """Launches per route of each kernel that has several routes."""
+    with _lock:
+        return {name: dict(r) for name, r in _routes.items()}
+
+
 def reset_launches() -> None:
     with _lock:
         for name in _launches:
             _launches[name] = 0
+        for r in _routes.values():
+            for route in r:
+                r[route] = 0

@@ -10,6 +10,11 @@ through the CUDA kernel, which reads them in place through their strides
 go through the plain torch version below.  Unlike the JAX wrapper, any S
 is taken: the kernel masks its ragged last tile.
 
+The kernel has two routes, chosen by :func:`flash_route` from dtype and
+strides before the launch (never after a failure): ``"tc"``, bf16 on the
+tensor cores with TMA loads, for bf16 tensors TMA can address; ``"fma"``,
+float32 FMAs on the CUDA cores, for float32 and any other layout.
+
 Forward only, like the TPU kernel: with grad enabled, a tensor that
 requires grad raises instead of returning a result without a gradient.
 """
@@ -23,6 +28,7 @@ import torch
 from repro_torch.kernels import _lib
 
 MAX_HEAD_DIM = 256
+ROUTES = ("tc", "fma")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30          # the finite mask value of the JAX kernel
 
@@ -50,6 +56,24 @@ def _forward_only(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                            "require grad (training uses attention_core)")
 
 
+def _tma_addressable(t: torch.Tensor) -> bool:
+    """A [B,S,H,hd] bf16 tensor TMA can read as 4-D (d, h, s, b): dim
+    stride 1, the other strides and the base on 16 bytes, hd a multiple of
+    8 up to 256."""
+    hd = t.shape[-1]
+    return (t.dtype == torch.bfloat16 and t.stride(3) == 1
+            and 0 < hd <= MAX_HEAD_DIM and hd % 8 == 0
+            and all(st > 0 and st % 8 == 0 for st in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel route for these operands, from dtype and strides alone:
+    ``"tc"`` when q, k and v are bf16 and TMA can address each of them,
+    else ``"fma"``."""
+    return "tc" if all(_tma_addressable(t) for t in (q, k, v)) else "fma"
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True
                           ) -> torch.Tensor:
@@ -72,11 +96,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor, *, causal: bool = True
-                         ) -> torch.Tensor:
+                         v: torch.Tensor, *, causal: bool = True,
+                         route: str = "") -> torch.Tensor:
     """Launch the kernel on CUDA tensors of one card and one dtype
     (float32 or bfloat16), any strides, head dim up to 256.  Returns a
-    new contiguous ``[B,S,Hq,hd]`` tensor on the card."""
+    new contiguous ``[B,S,Hq,hd]`` tensor on the card.  ``route`` forces
+    ``"fma"`` (any operands) or ``"tc"`` (operands :func:`flash_route`
+    sends there); by default :func:`flash_route` picks it."""
     b, s, hq, hkv, hd = _shape(q, k, v)
     _forward_only(q, k, v)
     dev = q.device
@@ -88,16 +114,29 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     if hd > MAX_HEAD_DIM or b * hq > 65535:
         raise ValueError(f"flash_attention: head dim {hd} (max "
                          f"{MAX_HEAD_DIM}) or B*Hq {b * hq} (max 65535)")
+    chosen = flash_route(q, k, v)
+    route = route or chosen
+    if route not in ROUTES or (route == "tc" and chosen != "tc"):
+        raise ValueError(f"flash_attention: route {route!r} does not take "
+                         f"these operands (flash_route says {chosen!r})")
     out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
+    scale = float(1.0 / np.sqrt(hd))
     with torch.cuda.device(dev):
-        _lib.call("kishu_flash_attention", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), b, s, hq, hkv, hd,
-                  _DTYPE_CODES[q.dtype], int(causal),
-                  float(1.0 / np.sqrt(hd)), *q.stride(), *k.stride(),
-                  *v.stride(), *out.stride(), _lib.stream_of(q))
-    _lib.note_launch("flash_attention")
+        if route == "tc":
+            _lib.call("kishu_flash_attention_tc", q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, hq,
+                      hkv, hd, int(causal), scale, *q.stride()[:3],
+                      *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+                      _lib.stream_of(q))
+        else:
+            _lib.call("kishu_flash_attention", q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), out.data_ptr(), b, s, hq, hkv, hd,
+                      _DTYPE_CODES[q.dtype], int(causal), scale,
+                      *q.stride(), *k.stride(), *v.stride(), *out.stride(),
+                      _lib.stream_of(q))
+    _lib.note_launch("flash_attention", route)
     return out
 
 

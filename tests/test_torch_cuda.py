@@ -336,6 +336,16 @@ def _flash_close(got, want):
                                **FLASH_TOL[want.dtype])
 
 
+def _flash_routes():
+    from repro_torch.kernels import _lib
+    return _lib.route_launches()["flash_attention"]
+
+
+def _route_of(dtype):
+    """The route contiguous operands of ``dtype`` take."""
+    return "tc" if dtype == torch.bfloat16 else "fma"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
@@ -346,9 +356,11 @@ def test_flash_kernel_matches_plain(dev, dtype, hd, causal, n_rep, s):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     q, k, v = _qkv(2, s, 2 * n_rep, 2, hd, dtype, dev, seed=hd + s)
-    before = _lib.launches()["flash_attention"]
+    before, routes = _lib.launches()["flash_attention"], _flash_routes()
     got = flash_attention(q, k, v, causal=causal)
     assert _lib.launches()["flash_attention"] == before + 1
+    route = _route_of(dtype)
+    assert _flash_routes()[route] == routes[route] + 1
     _flash_close(got, flash_attention_plain(q, k, v, causal=causal))
     if causal:
         assert torch.equal(got[:, 0, :], v[:, 0].repeat_interleave(n_rep, 1))
@@ -360,8 +372,11 @@ def test_flash_kernel_head_dim_256_and_long_ragged(dev, dtype):
                                                      flash_attention_plain)
     for shape in ((1, 100, 4, 2, 256), (1, 1037, 6, 2, 64)):
         q, k, v = _qkv(*shape, dtype, dev, seed=shape[1])
+        routes = _flash_routes()
         _flash_close(flash_attention_cuda(q, k, v),
                      flash_attention_plain(q, k, v))
+        route = _route_of(dtype)
+        assert _flash_routes()[route] == routes[route] + 1
 
 
 def test_flash_kernel_reads_strided_inputs_in_place(dev):
@@ -387,6 +402,37 @@ def test_flash_kernel_reads_strided_inputs_in_place(dev):
                                        v.contiguous(), causal=False))
 
 
+def test_flash_kernel_reads_strided_bf16(dev):
+    """bf16 q, k and v sliced out of one fused projection and a head-major
+    layout seen through a transpose go to the tensor-core route, read in
+    place through TMA; a dim stride of 2 goes to the fma route."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain,
+                                                     flash_route)
+    b, s, hq, hkv, hd = 2, 77, 6, 2, 32
+    g = torch.Generator(device="cpu").manual_seed(6)
+    bf = torch.bfloat16
+    fused = torch.randn((b, s, hq + 2 * hkv, hd), generator=g).to(bf).to(dev)
+    q, k, v = fused.split([hq, hkv, hkv], dim=2)
+    heads_first = torch.randn((b, hq, s, hd), generator=g).to(bf).to(dev)
+    qt = heads_first.transpose(1, 2)
+    wide = torch.randn((b, s, hkv, 2 * hd), generator=g).to(bf).to(dev)
+    kt = wide[..., ::2]
+    for qq, kk, vv, route in ((q, k, v, "tc"), (qt, k, v, "tc"),
+                              (qt, kt, v, "fma")):
+        assert flash_route(qq, kk, vv) == route
+        routes = _flash_routes()
+        for causal in (True, False):
+            _flash_close(flash_attention_cuda(qq, kk, vv, causal=causal),
+                         flash_attention_plain(qq.contiguous(),
+                                               kk.contiguous(),
+                                               vv.contiguous(),
+                                               causal=causal))
+        assert _flash_routes()[route] == routes[route] + 2
+    with pytest.raises(ValueError, match="route"):
+        flash_attention_cuda(qt, kt, v, route="tc")
+
+
 def test_flash_kernel_writes_no_row_past_s(dev):
     """The ragged last tile's rows past S are never written: the output is
     a slice of a larger guarded buffer, through the C entry point."""
@@ -403,6 +449,28 @@ def test_flash_kernel_writes_no_row_past_s(dev):
               *out.stride(), _lib.stream_of(q))
     torch.cuda.synchronize()
     assert bool((big[:, s:] == 7.0).all())
+    _flash_close(out, flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_tc_kernel_writes_no_row_past_s(dev, hd):
+    """The tensor-core entry point into a guarded buffer: rows past S and
+    columns past the output's own are never written."""
+    import numpy as np
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    b, s, hq, hkv = 2, 70, 4, 2
+    q, k, v = _qkv(b, s, hq, hkv, hd, torch.bfloat16, dev, seed=hd)
+    big = torch.full((b, s + 64, hq, hd + 8), 7.0, device=dev,
+                     dtype=torch.bfloat16)
+    out = big[:, :s, :, :hd]
+    _lib.call("kishu_flash_attention_tc", q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), out.data_ptr(), b, s, hq, hkv, hd, 1,
+              float(1 / np.sqrt(hd)), *q.stride()[:3], *k.stride()[:3],
+              *v.stride()[:3], *out.stride()[:3], _lib.stream_of(q))
+    torch.cuda.synchronize()
+    assert bool((big[:, s:] == 7.0).all())
+    assert bool((big[..., hd:] == 7.0).all())
     _flash_close(out, flash_attention_plain(q, k, v))
 
 
@@ -430,6 +498,20 @@ def test_flash_launch_failure_raises(dev, monkeypatch):
     q, k, v = _qkv(1, 8, 2, 1, 16, torch.float32, dev)
     with pytest.raises(RuntimeError, match="injected CUDA error"):
         flash_attention(q, k, v)
+    # the tensor-core entry point fails: no retry on the fma route
+    routes = _flash_routes()
+
+    def failing_tc(fn, *args):
+        if fn == "kishu_flash_attention_tc":
+            raise RuntimeError(f"{fn}: injected CUDA error")
+        return real(fn, *args)
+
+    monkeypatch.setattr(_lib, "call", failing_tc)
+    qb, kb, vb = _qkv(1, 8, 2, 1, 64, torch.bfloat16, dev)
+    with pytest.raises(RuntimeError, match="injected CUDA error"):
+        flash_attention(qb, kb, vb)
+    assert _flash_routes() == routes
+    monkeypatch.setattr(_lib, "call", failing)
     cfg = reduced(get_config("smollm-360m"), n_layers=2)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     toks = torch.zeros((1, 5), dtype=torch.int32, device=dev)
@@ -471,6 +553,7 @@ def test_prefill_on_the_card_launches_once_per_layer(dev):
     _lib.reset_launches()
     full = make_prefill_step(cfg)(params, {"tokens": toks.to(dev)})
     assert _lib.launches()["flash_attention"] == cfg.n_layers
+    assert _flash_routes() == {"tc": 0, "fma": cfg.n_layers}   # float32
     want = make_prefill_step(cfg)(cpu_params, {"tokens": toks})
     torch.testing.assert_close(full.cpu(), want, atol=1e-4, rtol=1e-4)
     caches = lm.init_caches(cfg, 2, 9, device=dev)
@@ -551,6 +634,7 @@ def test_serve_flow_checkouts_verify_on_the_card(dev):
     _lib.reset_launches()
     c0 = sess.run("prefill")
     assert _lib.launches()["flash_attention"] == cfg.n_layers
+    assert _flash_routes() == {"tc": cfg.n_layers, "fma": 0}   # bf16
     s0 = cache_snap(sess.ns)
     tokens, caches = {}, {}
     for flavor in (1, 2, 3, 1):

@@ -7,6 +7,8 @@ kernel itself is held against that plain version on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).  Tolerances are the JAX
 tests' own (``tests/test_kernels_flash_attention.py``): float32 atol 3e-5 /
 rtol 1e-4 (summation order), bf16 3e-2 (one bf16 rounding of the output).
+The tensor-core route's arithmetic (p split into two bf16 halves for P.V)
+is emulated in plain torch and held to the card's bf16 tolerance.
 """
 import numpy as np
 import pytest
@@ -21,7 +23,8 @@ from repro.kernels.flash_attention import flash_attention as jflash  # noqa: E40
 
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 flash_route)
 from repro_torch.models.layers import attention_core  # noqa: E402
 
 F32 = dict(atol=3e-5, rtol=1e-4)
@@ -146,3 +149,109 @@ def test_device_without_a_kernel_raises():
     q = torch.zeros((1, 8, 2, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported devices"):
         flash_attention(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core route: which operands take it, and its P.V arithmetic
+# ---------------------------------------------------------------------------
+
+# the card's bf16 tolerance of a kernel against the plain version
+# (tests/test_torch_cuda.py FLASH_TOL, chip_smoke.py)
+CARD_BF16 = dict(atol=1e-5, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 4, 2, 16), (2, 8, 4, 2, 32),
+                                   (2, 8, 4, 2, 64), (2, 8, 4, 2, 128),
+                                   (2, 8, 4, 2, 256), (8, 512, 15, 5, 64),
+                                   (8, 512, 16, 8, 128)], ids=str)
+def test_route_is_tc_for_contiguous_bf16(shape):
+    """Contiguous bf16 takes the tensor-core route at every head dim up to
+    256 and at the prefill shapes (SmolLM-360M, qwen3-1.7b); float32 the
+    fma route."""
+    b, s, hq, hkv, hd = shape
+    q = torch.zeros((b, s, hq, hd), dtype=torch.bfloat16)
+    k = torch.zeros((b, s, hkv, hd), dtype=torch.bfloat16)
+    assert flash_route(q, k, k) == "tc"
+    assert flash_route(q.float(), k.float(), k.float()) == "fma"
+
+
+def test_route_is_fma_where_tma_cannot_address():
+    """A dim stride of 2, a dtype mix, or a base off 16 bytes: fma."""
+    q = torch.zeros((2, 8, 4, 64), dtype=torch.bfloat16)
+    wide = torch.zeros((2, 8, 2, 128), dtype=torch.bfloat16)
+    k = wide[..., ::2]
+    assert k.stride(3) == 2 and flash_route(q, k, k) == "fma"
+    assert flash_route(q, q[:, :, :2].float(), q[:, :, :2]) == "fma"
+    flat = torch.zeros(2 * 8 * 4 * 64 + 1, dtype=torch.bfloat16)
+    off = flat[1:].view(2, 8, 4, 64)                    # base + 2 bytes
+    assert flash_route(off, q, q) == "fma"
+    fused = torch.zeros((2, 8, 8, 64), dtype=torch.bfloat16)
+    qs, ks, vs = fused.split([4, 2, 2], dim=2)           # views, in place
+    assert not qs.is_contiguous() and flash_route(qs, ks, vs) == "tc"
+
+
+def _emulate_tc(q, k, v, causal, split=True):
+    """The tensor-core route's arithmetic in plain torch: tiles of 64 keys,
+    scores in log2 units, online softmax in float32, and P.V on p rounded
+    to bf16, once (``split=False``) or as hi + lo halves (``split=True``),
+    with float32 accumulation.  q, k, v bf16 [B,S,H,hd] (GQA repeated)."""
+    _, s, hq, hd = q.shape
+    n_rep = hq // k.shape[2]
+    k = torch.repeat_interleave(k, n_rep, dim=2).float()
+    v = torch.repeat_interleave(v, n_rep, dim=2).float()
+    qf = q.float()
+    scale2 = np.float32(1 / np.sqrt(hd)) * np.float32(np.log2(np.e))
+    m = torch.full((q.shape[0], hq, s, 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((q.shape[0], hq, s, hd))
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, s, 64):
+        kt, vt = k[:, k0:k0 + 64], v[:, k0:k0 + 64]
+        raw = torch.einsum("bqhd,bkhd->bhqk", qf, kt)
+        valid = torch.ones((s, kt.shape[1]), dtype=torch.bool)
+        if causal:
+            valid = torch.arange(k0, k0 + kt.shape[1])[None, :] <= rows
+        raw = raw.masked_fill(~valid, -1e30)
+        m_new = torch.maximum(m, raw.amax(-1, keepdim=True) * scale2)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(raw * scale2 - m_new).masked_fill(~valid, 0.0)
+        l = corr * l + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        pv = torch.einsum("bhqk,bkhd->bhqd", hi, vt)
+        if split:
+            lo = (p - hi).to(torch.bfloat16).float()
+            pv = pv + torch.einsum("bhqk,bkhd->bhqd", lo, vt)
+        acc = corr * acc + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _bf16_case(causal):
+    q, k, v = _qkv(2, 130, 6, 2, 64, seed=11 + causal)
+    bf = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    want = jflash(*bf, causal=causal, backend="ref")
+    tq, tk, tv = (_t(np.asarray(x, np.float32), torch.bfloat16) for x in bf)
+    return tq, tk, tv, np.asarray(want, np.float32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_split_pv_meets_the_card_tolerance(causal):
+    """p = hi + lo (two bf16 halves) keeps P.V within the card's bf16
+    tolerance of the JAX reference."""
+    q, k, v, want = _bf16_case(causal)
+    got = _emulate_tc(q, k, v, causal)
+    np.testing.assert_allclose(got.float().numpy(), want, **CARD_BF16)
+    if causal:                      # row 0 attends only itself
+        assert torch.equal(got[:, 0], torch.repeat_interleave(v[:, 0], 3, 1))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_one_bf16_rounding_of_p_misses_the_card_tolerance(causal):
+    """Why the split exists: p rounded once to bf16 (2^-9 relative) moves
+    outputs near zero by more than atol 1e-5 + rtol 2^-7."""
+    q, k, v, want = _bf16_case(causal)
+    got = _emulate_tc(q, k, v, causal, split=False).float().numpy()
+    bad = np.abs(got - want) > CARD_BF16["atol"] + CARD_BF16["rtol"] * \
+        np.abs(want)
+    assert bad.any()
