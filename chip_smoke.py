@@ -17,24 +17,32 @@ Phase 1  holds every kernel against its plain torch version on the card at
          heads of 64, causal) and six more (float32, full attention, no
          GQA, head dim 128, ragged S, S 4096) on each of its routes (bf16:
          the tensor-core route "tc" and the FMA route; float32: FMA), and
-         timed beside SDPA.  patch_scatter, index_copy_, both flash routes
-         and SDPA are timed by device time (CUDA-graph replay, 5 rounds in
-         turns; median and range) beside the host loop of earlier runs.
+         timed beside SDPA.  Every kernel, index_copy_, the block_diff
+         library call and SDPA are timed by device time (CUDA-graph replay,
+         5 rounds in turns; median and range) beside the host loop of
+         earlier runs; chunk_hash, delta_pack (scan + gather), delta_codec
+         (classify + emit) and block_diff through their C entries, since
+         their wrappers read a count back mid-call.
 Phase 2  the main path: a ``KishuSession`` on a ``dir://`` store commits a
          SmolLM-360M-shaped fine-tuning state (fp32 params + AdamW m and v,
          870 tensors, 4.34 GB, random from a seeded CUDA generator), runs an
          AdamW step on layers 28-31 and re-initialises two vocabulary
          slices (rows 32768-37682 and 40000-44914), then checks out back
-         and forward; every tensor must come back bit-identical.  Kernel
-         launch counts are read from this phase only.
+         and forward; every tensor must come back bit-identical.  The cycle
+         re-init, checkout back, checkout forward then runs twice more
+         (each from the AdamW-step commit, with a fresh seed), and all
+         three are printed.  Kernel launch counts are read from this phase
+         only.
 Phase 3  the same small cells through a CUDA session and a CPU session (the
          plain versions) must write identical stores.
 Phase 4  the trainer path: ``ManagedTrainingSession`` trains SmolLM-360M at
          full width and depth (bf16 params, fp32 AdamW moments, 3.62 GB,
          random from a seed) on a ``dir://`` store with 1 MiB chunks —
          attach, train, set_lr, train, evaluate, checkout back and forward,
-         and ``resume`` in a fresh session — and verifies every checkout,
-         the resume and the LR-only commit exactly with
+         then a checkout of the first train commit's parent and train
+         again (a replay, which must reproduce that commit), and
+         ``resume`` in a fresh session — and verifies every checkout, the
+         replay, the resume and the LR-only commit exactly with
          ``delta.exact_dirty_indices`` (the block_diff kernel).  Its
          launch counts are read from this phase, from attach to the resume's
          verification.
@@ -47,6 +55,9 @@ Phase 5  the serving path (examples/serve_batched.py on the card):
          generations of 64 tokens (flavors 1, 2, 3, then 1 again) each
          start from a checkout of the prefix that block_diff verifies
          exact; the repeated flavor must give the same tokens and caches.
+         Both decode loops replay a CUDA graph of the step
+         (``GraphedDecodeStep``); a fifth generation by the eager step,
+         from the same checkout, must equal the graph's bit for bit.
          flash_attention's launch count is read from this phase, and all
          32 prefill launches must take the tc route.
 
@@ -221,6 +232,7 @@ def max_abs_err(torch, a, b) -> float:
 
 def phase1(torch, dev) -> list:
     from repro_torch.core.hashing import MASK32, chunk_hashes_plain
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.block_diff.ops import (block_diff_cuda,
                                                     block_diff_plain)
     from repro_torch.kernels.chunk_hash.ops import chunk_hash_cuda
@@ -257,12 +269,25 @@ def phase1(torch, dev) -> list:
                           & MASK32, chunk_hashes_plain(extra, CB)),
               "chunk_hash != plain on a ragged / unaligned input")
     b_ms, b_by = bound(nbytes + 8 * n, HASH_OPS_PER_WORD * words)
+    # device time of the C entry alone, with the zeroing of its output that
+    # the wrapper does (the kernel xors partial lanes into it)
+    h_out = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+    h_splits = _lib.splits_for(n, CB)
+
+    def hash_raw():
+        h_out.zero_()
+        _lib.call("kishu_chunk_hash", u8.data_ptr(), nbytes, CB, h_splits,
+                  h_out.data_ptr(), _lib.stream_of(u8))
+    dev_t = device_ms(torch, {"kernel": hash_raw}, 20)
+    check(torch.equal(h_out.to(torch.int64) & MASK32, p),
+          "chunk_hash's C entry != plain after the timed replays")
     rows_out.append({
         "name": "chunk_hash", "route": "cuda",
         "source": "src/repro_torch/csrc/chunk_hash.cu",
         "replaces": "src/repro/kernels/chunk_hash/kernel.py:61",
-        "max_abs_err": err,
-        "ms": time_ms(torch, lambda: chunk_hash_cuda(u8, CB), 20),
+        "max_abs_err": err, "ms": dev_t["kernel"]["median"],
+        "host_ms": time_ms(torch, lambda: chunk_hash_cuda(u8, CB), 20),
+        "device": dev_t,
         "plain_ms": time_ms(torch, lambda: chunk_hashes_plain(u8, CB), 2),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"fp32 [{VOCAB}, {D_MODEL}], {n} chunks of 1 MiB"})
@@ -284,12 +309,36 @@ def phase1(torch, dev) -> list:
     dirty_idx = torch.nonzero(kd).reshape(-1)
     b_ms, b_by = bound(nbytes + 8 * n + 16 * n + 4 + kcount * CB,
                        HASH_OPS_PER_WORD * words)
+    # scan + gather, the gather sized by the count of the call above: the
+    # wrapper's read-back of the count stays outside the timed graph
+    p_hash = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+    p_dirty, p_pos = (torch.empty((n,), dtype=torch.int32, device=dev)
+                      for _ in range(2))
+    p_count = torch.empty((1,), dtype=torch.int32, device=dev)
+    p_buf = torch.empty((kcount, CB // 4), dtype=torch.int32, device=dev)
+    p_splits = _lib.splits_for(n, CB)
+
+    def pack_raw():
+        p_hash.zero_()
+        _lib.call("kishu_delta_pack_scan", u8b.data_ptr(), nbytes, CB,
+                  p_splits, prev32.data_ptr(), p_hash.data_ptr(),
+                  p_dirty.data_ptr(), p_pos.data_ptr(), p_count.data_ptr(),
+                  _lib.stream_of(u8b))
+        _lib.call("kishu_delta_pack_gather", u8b.data_ptr(), nbytes, CB,
+                  p_splits, p_pos.data_ptr(), p_buf.data_ptr(),
+                  _lib.stream_of(u8b))
+    dev_t = device_ms(torch, {"kernel": pack_raw}, 20)
+    check(int(p_count.item()) == kcount and torch.equal(p_hash, kh)
+          and torch.equal(p_pos, kpos) and torch.equal(p_buf, kbuf),
+          "delta_pack's C entries != the wrapper after the timed replays")
     rows_out.append({
         "name": "delta_pack", "route": "cuda",
         "source": "src/repro_torch/csrc/delta_pack.cu",
         "replaces": "src/repro/kernels/delta_pack/kernel.py:112",
-        "max_abs_err": err,
-        "ms": time_ms(torch, lambda: delta_pack_cuda(u8b, prev32, CB), 20),
+        "max_abs_err": err, "ms": dev_t["kernel"]["median"],
+        "host_ms": time_ms(torch, lambda: delta_pack_cuda(u8b, prev32, CB),
+                           20),
+        "device": dev_t,
         "plain_ms": time_ms(torch, lambda: delta_pack_plain(u8b, prev, CB),
                             2),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -323,12 +372,31 @@ def phase1(torch, dev) -> list:
     rw = rows.numel()
     b_ms, b_by = bound(rw * 4 + masks.nbytes + planes.nbytes,
                        CODEC_OPS_PER_WORD * rw)
+    # classify + emit, the plane buffer sized by the earlier call's count
+    ng = km.shape[0]
+    c_masks = torch.empty_like(km)
+    c_offsets = torch.empty((ng,), dtype=torch.int32, device=dev)
+    c_total = torch.empty((1,), dtype=torch.int32, device=dev)
+    c_planes = torch.empty_like(kp)
+
+    def codec_raw():
+        _lib.call("kishu_codec_classify", rows.data_ptr(), ng, gw,
+                  c_masks.data_ptr(), c_offsets.data_ptr(),
+                  c_total.data_ptr(), _lib.stream_of(rows))
+        _lib.call("kishu_codec_emit", rows.data_ptr(), ng, gw,
+                  c_masks.data_ptr(), c_offsets.data_ptr(),
+                  c_planes.data_ptr(), _lib.stream_of(rows))
+    dev_t = device_ms(torch, {"kernel": codec_raw}, 20)
+    check(int(c_total.item()) == kn and torch.equal(c_masks, km)
+          and torch.equal(c_planes, kp),
+          "delta_codec's C entries != the wrapper after the timed replays")
     rows_out.append({
         "name": "delta_codec", "route": "cuda",
         "source": "src/repro_torch/csrc/delta_codec.cu",
         "replaces": "src/repro/kernels/delta_codec/kernel.py:105",
-        "max_abs_err": err,
-        "ms": time_ms(torch, lambda: codec_encode_cuda(rows, gw), 20),
+        "max_abs_err": err, "ms": dev_t["kernel"]["median"],
+        "host_ms": time_ms(torch, lambda: codec_encode_cuda(rows, gw), 20),
+        "device": dev_t,
         "plain_ms": time_ms(torch,
                             lambda: codec_encode_plain(u32_values(rows), gw),
                             2),
@@ -406,26 +474,36 @@ def phase1(torch, dev) -> list:
                   f"{cb}-byte chunks")
             errs.append(max_abs_err(torch, kx, px))
     b_ms, b_by = bound(2 * nbytes + 4 * n, 2 * words)
+    d_flags = torch.zeros((n,), dtype=torch.int32, device=dev)
+    d_splits = _lib.splits_for(n, CB)
+
+    def diff_raw():
+        d_flags.zero_()
+        _lib.call("kishu_block_diff", u8.data_ptr(), u8b.data_ptr(), nbytes,
+                  CB, d_splits, d_flags.data_ptr(), _lib.stream_of(u8))
+    diff_lib = lambda: (u8 != u8b).view(n, -1).any(1)          # noqa: E731
+    dev_t = device_ms(torch, {"kernel": diff_raw, "library": diff_lib}, 50)
+    check(torch.equal(d_flags, kf),
+          "block_diff's C entry != the wrapper after the timed replays")
     rows_out.append({
         "name": "block_diff", "route": "cuda",
         "source": "src/repro_torch/csrc/block_diff.cu",
         "replaces": "src/repro/kernels/block_diff/kernel.py:31",
-        "max_abs_err": max(errs),
-        "ms": time_ms(torch, lambda: block_diff_cuda(u8, u8b, CB), 50),
+        "max_abs_err": max(errs), "ms": dev_t["kernel"]["median"],
+        "host_ms": time_ms(torch, lambda: block_diff_cuda(u8, u8b, CB), 50),
         "plain_ms": time_ms(torch, lambda: block_diff_plain(u8, u8b, CB), 5),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(torch, lambda: (u8 != u8b).view(n, -1).any(1),
-                              20),
+        "library_ms": dev_t["library"]["median"],
+        "host_library_ms": time_ms(torch, diff_lib, 20),
+        "device": dev_t,
         "shape": f"fp32 [{VOCAB}, {D_MODEL}] vs its re-init, {kcount} of {n} "
                  f"chunks of 1 MiB differ"})
     for r in rows_out:
-        if "device" in r:
-            times = (f"kernel device {spread(r['device']['kernel'])}, host "
-                     f"loop {r['host_ms']:.4f} ms; library device "
-                     f"{spread(r['device']['library'])}, host loop "
-                     f"{r['host_library_ms']:.4f} ms")
-        else:
-            times = (f"kernel {r['ms']:.4f} ms, library {r['library_ms']}")
+        times = (f"kernel device {spread(r['device']['kernel'])}, host "
+                 f"loop {r['host_ms']:.4f} ms")
+        if "library" in r["device"]:
+            times += (f"; library device {spread(r['device']['library'])},"
+                      f" host loop {r['host_library_ms']:.4f} ms")
         print(f"phase1 {r['name']}: bit-identical to plain; {r['shape']}; "
               f"{times}; plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
@@ -573,11 +651,11 @@ def finetune_top(ns, step: int) -> None:
         p.addcdiv_(m, v.sqrt().add_(1e-8), value=-1e-4)
 
 
-def reinit_vocab_slice(ns, lo: int, hi: int) -> None:
+def reinit_vocab_slice(ns, lo: int, hi: int, seed: int = 7) -> None:
     """Re-initialise embedding rows [lo, hi) and zero their moments."""
     import torch
     emb = ns["params/embed"]
-    g = torch.Generator(device=emb.device).manual_seed(7)
+    g = torch.Generator(device=emb.device).manual_seed(seed)
     emb[lo:hi].normal_(0, 0.02, generator=g)
     ns["opt/m/embed"][lo:hi].zero_()
     ns["opt/v/embed"][lo:hi].zero_()
@@ -672,8 +750,7 @@ def phase2(torch, dev, workdir: Path) -> dict:
               f"{rec['reinit_vocab_slice']}")
         snap2 = tensor_snapshot(torch, sess.ns)
 
-        for label, target, snap in (("checkout_back", c_attach, snap0),
-                                     ("checkout_forward", c_vocab, snap2)):
+        def checkout(label: str, target: str, snap: dict) -> None:
             t0 = time.perf_counter()
             st = sess.checkout(target)
             torch.cuda.synchronize()
@@ -693,6 +770,50 @@ def phase2(torch, dev, workdir: Path) -> dict:
             print(f"phase2 {label}: {rec[f'{label}_s']:.3f} s, all "
                   f"{len(snap)} tensors bit-identical; {rec[label]}; "
                   f"stages {rec[f'{label}_stages']}", flush=True)
+
+        checkout("checkout_back", c_attach, snap0)
+        checkout("checkout_forward", c_vocab, snap2)
+        del snap2
+        # the cycle reinit_vocab_slice -> checkout back -> checkout forward,
+        # twice more: each from the finetune_top state (an untimed checkout
+        # there), with a fresh seed, so each commit re-initialises the rows
+        # and zeroes their moments as the first did
+        cycles = [{k: rec[f"{k}_s"] for k in (
+            "reinit_vocab_slice", "checkout_back", "checkout_forward")}]
+        for rep in (1, 2):
+            sess.checkout(c_ft)
+            stages()
+            lo, hi = VOCAB_ROWS
+            t0 = time.perf_counter()
+            c_rep = sess.run("reinit_vocab_slice", lo=lo, hi=hi, seed=7 + rep)
+            label = f"reinit_vocab_slice_{rep}"
+            rec[f"{label}_s"] = time.perf_counter() - t0
+            rec[f"{label}_stages"] = stages()
+            w = sess.last_run.write
+            rec[label] = {"covs_packed": w.covs_packed,
+                          "bytes_dev2host": w.bytes_dev2host,
+                          "bytes_written": w.bytes_written,
+                          "chunks_encoded": w.chunks_encoded,
+                          "chunks_codec_skipped": w.chunks_codec_skipped}
+            check(w.covs_packed == 3 and w.chunks_encoded > 0,
+                  f"{label}: {rec[label]}")
+            print(f"phase2 {label}: {rec[f'{label}_s']:.3f} s; "
+                  f"{rec[label]}; stages {rec[f'{label}_stages']}",
+                  flush=True)
+            snap = tensor_snapshot(torch, sess.ns)
+            checkout(f"checkout_back_{rep}", c_attach, snap0)
+            checkout(f"checkout_forward_{rep}", c_rep, snap)
+            del snap
+            cycles.append({k: rec[f"{k}_{rep}_s"] for k in (
+                "reinit_vocab_slice", "checkout_back", "checkout_forward")})
+        rec["cycles"] = cycles
+        for i, c in enumerate(cycles):
+            over = [k for k, v in c.items() if v >= 1.0]
+            print(f"phase2 cycle {i}: reinit_vocab_slice "
+                  f"{c['reinit_vocab_slice']:.3f} s, checkout back "
+                  f"{c['checkout_back']:.3f} s, checkout forward "
+                  f"{c['checkout_forward']:.3f} s; at or over 1 s: {over}",
+                  flush=True)
         rec["commits"] = [c_attach, c_ft,
                           rec["reinit_vocab_slice"]["commit"], c_vocab]
         rec["launches"] = _lib.launches()
@@ -878,10 +999,25 @@ def phase4(torch, dev, workdir: Path) -> dict:
                                                    label)
             check(sess.ns[embed] is sess.ns[head],
                   f"{label}: lm_head is not embed")
-        rec["commits"] = [c0, c1, c2, c3, c4]
+        del s3
+        # train replay: from the parent of the first train commit, train(2)
+        # again must reproduce that commit's state bit for bit (Kishu's
+        # fallback recomputation replays commands and relies on this)
+        st = timed("checkout_parent", lambda: sess.checkout(c0))
+        checkout_rec("checkout_parent", st)
+        c5 = timed("train_replay", lambda: sess.train(2))
+        commit_rec("train_replay")
+        rec["verify_train_replay_s"] = verify_exact(
+            torch, sess.ns, s1, "train(2) replayed from its parent")
+        check(rec["train_replay"]["loss"] == loss1,
+              f"replayed loss {rec['train_replay']['loss']} != {loss1}")
+        docs = [sess.kishu.graph.nodes[c].stats for c in (c1, c5)]
+        check(docs[0].get("replay_safe") is True
+              and docs[1].get("replay_safe") is True,
+              f"replay_safe in the train commits' docs: {docs}")
+        rec["commits"] = [c0, c1, c2, c3, c4, c5]
     finally:
         sess.close()
-    del s1
     # the resumed session traces from its first load (KISHU_TRACE=1)
     prev = os.environ.get("KISHU_TRACE")
     os.environ["KISHU_TRACE"] = "1"
@@ -897,17 +1033,23 @@ def phase4(torch, dev, workdir: Path) -> dict:
             os.environ["KISHU_TRACE"] = prev
     rec["resume_stages"] = r.kishu.obs.tracer.stage_totals()
     try:
-        check(r.kishu.head == c3, f"resumed at {r.kishu.head}, not {c3}")
-        rec["verify_resume_s"] = verify_exact(torch, r.ns, s3, "resume")
+        check(r.kishu.head == c5, f"resumed at {r.kishu.head}, not {c5}")
+        rec["verify_resume_s"] = verify_exact(torch, r.ns, s1, "resume")
         check(r.ns[embed] is r.ns[head], "resume: lm_head is not embed")
         rec["launches"] = _lib.launches()
     finally:
         r.close()
-    del s3
+    del s1
 
-    for key in ("attach", "train_1", "set_lr", "train_2", "evaluate"):
+    for key in ("attach", "train_1", "set_lr", "train_2", "evaluate",
+                "train_replay"):
         print(f"phase4 {key}: {rec[f'{key}_s']:.3f} s; {rec[key]}; "
               f"stages {rec[f'{key}_stages']}", flush=True)
+    print(f"phase4 train replay: checkout of the parent "
+          f"{rec['checkout_parent_s']:.3f} s ({rec['checkout_parent']}), "
+          f"then train(2) again: every tensor bit-identical to the first "
+          f"train commit (block_diff, {rec['verify_train_replay_s']:.3f} s), "
+          f"loss {rec['train_replay']['loss']}", flush=True)
     for key in ("checkout_back", "checkout_forward"):
         print(f"phase4 {key}: {rec[f'{key}_s']:.3f} s, every tensor "
               f"bit-identical (block_diff, {rec[f'verify_{key}_s']:.3f} s); "
@@ -928,6 +1070,32 @@ def phase4(torch, dev, workdir: Path) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 5: serving under Kishu (SmolLM-360M, full size)
 # ---------------------------------------------------------------------------
+
+def profile_decode(torch, step, params, caches, tok, n: int) -> dict:
+    """``n`` greedy steps of ``step`` after one untimed step, under
+    ``torch.profiler``: host ms a step, kernel ms a step (the sum of the
+    kernels' device time), launches a step, the busy share (kernel time
+    over the host clock) and the five kernels that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+    tok, _ = step(params, caches, {"tokens": tok, "index": 0})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(1, n + 1):
+            tok, _ = step(params, caches, {"tokens": tok, "index": t})
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {"wall_ms": wall_ms / n, "kernel_ms": kernel_ms / n,
+            "kernels": sum(e.count for e in kernels) / n,
+            "busy_share": kernel_ms / wall_ms,
+            "top": [(e.key[:48], round(e.self_device_time_total / 1e3 / n,
+                                       3)) for e in top]}
+
 
 def phase5(torch, dev, workdir: Path) -> dict:
     """examples/serve_batched.py on the card: prefill (flash kernel) and the
@@ -955,7 +1123,10 @@ def phase5(torch, dev, workdir: Path) -> dict:
                             device=dev, generator=torch.Generator(
                                 device=dev).manual_seed(1))
     prefill_step = step_lib.make_prefill_step(cfg)
-    decode = step_lib.make_decode_step(cfg)
+    # both decode loops replay a CUDA graph of the step (the JAX package
+    # jits it); the eager step runs one generation for comparison
+    decode = step_lib.GraphedDecodeStep(cfg)
+    eager_decode = step_lib.make_decode_step(cfg)
     # bound on |prefill - decode| logits, from bf16: one rounding (2**-8
     # relative) per residual add, 2 per layer, summed as a random walk,
     # moves the final normed state x (|x| = sqrt(d_model)) by
@@ -980,21 +1151,23 @@ def phase5(torch, dev, workdir: Path) -> dict:
               and bool(torch.isfinite(logits).all()),
               f"prefill logits {tuple(logits.shape)} {logits.dtype}")
         t0 = time.perf_counter()
+        cap0, cap_s0 = decode.captures, decode.capture_s
         caches = lm.init_caches(cfg, b, plen + gen)
         tok = prompts[:, :1]
         err_max = torch.zeros((), device=dev)
         err_sum = torch.zeros((), dtype=torch.float64, device=dev)
         with torch.no_grad():
             for t in range(plen):
-                lg, caches = lm.decode_step(cfg, params, caches,
-                                            {"tokens": tok, "index": t})
+                lg, nxt, caches = decode.with_logits(
+                    params, caches, {"tokens": tok, "index": t})
                 d = (lg[:, 0] - logits[:, t]).abs()
                 err_max = torch.maximum(err_max, d.max())
                 err_sum += d.double().sum()
-                tok = prompts[:, t + 1:t + 2] if t + 1 < plen else \
-                    lg[..., :vocab].argmax(-1).to(torch.int32)
+                tok = prompts[:, t + 1:t + 2] if t + 1 < plen else nxt
         torch.cuda.synchronize()
         rec["decode_prefill_s"] = time.perf_counter() - t0
+        rec["decode_prefill_captures"] = decode.captures - cap0
+        rec["decode_prefill_capture_s"] = decode.capture_s - cap_s0
         rec["prefill_decode_max_abs_err"] = float(err_max)
         rec["prefill_decode_mean_abs_err"] = float(err_sum) / logits.numel()
         last = logits[:, -1]
@@ -1005,25 +1178,31 @@ def phase5(torch, dev, workdir: Path) -> dict:
         ns["last_tok"] = tok
         ns["pos"] = plen
 
-    def generate(ns, n, flavor):
-        caches = ns.get_tree("caches")
-        tok, pos, outs = ns["last_tok"], ns["pos"], []
-        for t in range(n):
-            tok, caches = decode(params, caches,
-                                 {"tokens": (tok + flavor) % vocab,
-                                  "index": pos + t})
-            outs.append(tok)
-        ns.set_tree("caches", caches)
-        ns["last_tok"] = tok
-        ns["pos"] = pos + n
-        ns["generated"] = torch.cat(outs, dim=1)
+    def generate_with(step):
+        def generate(ns, n, flavor):
+            caches = ns.get_tree("caches")
+            tok, pos, outs = ns["last_tok"], ns["pos"], []
+            for t in range(n):
+                tok, caches = step(params, caches,
+                                   {"tokens": (tok + flavor) % vocab,
+                                    "index": pos + t})
+                outs.append(tok)
+            ns.set_tree("caches", caches)
+            ns["last_tok"] = tok
+            ns["pos"] = pos + n
+            ns["generated"] = torch.cat(outs, dim=1)
+            # the cell's exec time then holds its steps' device time, not
+            # only their enqueue
+            torch.cuda.synchronize()
+        return generate
 
     sess = KishuSession(open_store(f"dir://{workdir}/serve_cas"),
                         chunk_bytes=SERVE_CHUNK, trace=True)
     check(sess.device.type == "cuda", "the session did not default to cuda")
     tracer = sess.obs.tracer
     sess.register("prefill", prefill)
-    sess.register("generate", generate)
+    sess.register("generate", generate_with(decode))
+    sess.register("generate_eager", generate_with(eager_decode))
     sess.init_state({})
 
     def run_rec(label: str, t0: float) -> None:
@@ -1085,9 +1264,12 @@ def phase5(torch, dev, workdir: Path) -> dict:
             rec[f"verify_checkout_{i}_s"] = verify_exact(
                 torch, sess.ns, snap0, f"checkout {i} to the prefix")
             t0 = time.perf_counter()
+            cap0, cap_s0 = decode.captures, decode.capture_s
             sess.run("generate", n=gen, flavor=flavor)
             run_rec(f"generate_{i}", t0)
-            rec[f"generate_{i}"]["flavor"] = flavor
+            rec[f"generate_{i}"].update(
+                flavor=flavor, captures=decode.captures - cap0,
+                capture_s=decode.capture_s - cap_s0)
             got = sess.ns["generated"]
             check(tuple(got.shape) == (b, gen) and int(got.max()) < vocab
                   and int(got.min()) >= 0, f"generated {tuple(got.shape)}")
@@ -1102,6 +1284,17 @@ def phase5(torch, dev, workdir: Path) -> dict:
                     snap1 = tensor_snapshot(torch, sess.ns)
         check(not torch.equal(tokens[1], tokens[2]),
               "flavors 1 and 2 generated the same tokens")
+        # the eager step from the same checkout: the graph's tokens and
+        # caches bit for bit
+        sess.checkout(c_prefix)
+        tracer.clear()
+        t0 = time.perf_counter()
+        sess.run("generate_eager", n=gen, flavor=1)
+        run_rec("generate_eager", t0)
+        check(torch.equal(sess.ns["generated"], tokens[1]),
+              "the eager step generated other tokens than the graph")
+        rec["verify_eager_s"] = verify_exact(
+            torch, sess.ns, snap1, "eager generate against the graph's")
         rec["launches"] = _lib.launches()
     finally:
         sess.close()
@@ -1110,6 +1303,23 @@ def phase5(torch, dev, workdir: Path) -> dict:
     rec["decode_prefill_tok_s"] = b * plen / rec["decode_prefill_s"]
     rec["generate_tok_s"] = [b * gen / rec[f"generate_{i}_s"]
                              for i in range(4)]
+    rec["captures"] = decode.captures
+    rec["capture_s"] = decode.capture_s
+    # steady-state steps: the loop's time less its captures
+    rec["decode_prefill_ms_per_step"] = 1e3 * (
+        rec["decode_prefill_s"] - rec["decode_prefill_capture_s"]) / plen
+    rec["generate_ms_per_step"] = [
+        1e3 * (rec[f"generate_{i}"]["exec_s"]
+               - rec[f"generate_{i}"]["capture_s"]) / gen for i in range(4)]
+    rec["eager_ms_per_step"] = 1e3 * rec["generate_eager"]["exec_s"] / gen
+    # the card's busy share in a decode step: torch.profiler's kernel time
+    # over the host clock, for the graph and for the eager step, on caches
+    # of their own (the graph captures once more for them)
+    rec["decode_profile"] = {
+        name: profile_decode(torch, step, params, lm.init_caches(
+            cfg, b, plen + gen), prompts[:, :1], min(n, plen + gen - 1))
+        for name, step, n in (("graph", decode, 20),
+                              ("eager", eager_decode, 5))}
     print(f"phase5 {cfg.name}: {n_params} bf16 params; caches "
           f"{rec['cache_leaves']} ({rec['cache_bytes']} bytes) on {dev}",
           flush=True)
@@ -1123,7 +1333,26 @@ def phase5(torch, dev, workdir: Path) -> dict:
           f"{rec['prefill_decode_mean_abs_err']:.2e}, bound "
           f"{logit_bound:.4f}); last-position argmax agrees on "
           f"{rec['last_argmax_agree']} of {b}", flush=True)
-    for key in ["prefill"] + [f"generate_{i}" for i in range(4)]:
+    for name, prof in rec["decode_profile"].items():
+        check(prof["kernels"] > 0, f"the profiler saw no kernel of the "
+                                   f"{name} decode step")
+        print(f"phase5 decode profile, {name}: {prof['wall_ms']:.3f} ms a "
+              f"step on the host clock, {prof['kernel_ms']:.3f} ms of "
+              f"kernels ({prof['kernels']:.0f} launches a step), busy share "
+              f"{prof['busy_share']:.3f}; largest: {prof['top'][:4]}",
+              flush=True)
+    print(f"phase5 decode graph: {rec['captures']} captures in "
+          f"{rec['capture_s']:.3f} s; decode-loop prefill "
+          f"{rec['decode_prefill_ms_per_step']:.3f} ms a step after "
+          f"{rec['decode_prefill_captures']} capture(s) "
+          f"({rec['decode_prefill_capture_s']:.3f} s); generate "
+          f"{[round(x, 3) for x in rec['generate_ms_per_step']]} ms a step, "
+          f"captures {[rec[f'generate_{i}']['captures'] for i in range(4)]};"
+          f" the eager step {rec['eager_ms_per_step']:.3f} ms a step, its "
+          f"generation bit-identical to the graph's (tokens, caches; "
+          f"block_diff {rec['verify_eager_s']:.3f} s)", flush=True)
+    for key in ["prefill"] + [f"generate_{i}" for i in range(4)] \
+            + ["generate_eager"]:
         print(f"phase5 {key}: {rec[f'{key}_s']:.3f} s; {rec[key]}; stages "
               f"{rec[f'{key}_stages']}", flush=True)
     for i in range(4):

@@ -97,12 +97,14 @@ def materialize_manifest(store: ChunkStore, manifest: dict,
         if len(data) != c["n"]:
             raise ChunkMissingError(f"chunk {c['key']}: size mismatch")
         parts.append(data)
-    blob = b"".join(parts)
-    if len(blob) != base_info["nbytes"]:
+    nbytes = sum(len(p) for p in parts)
+    if nbytes != base_info["nbytes"]:
         raise ChunkMissingError("assembled size mismatch")
     if stats:
-        stats.bytes_logical += len(blob)
-    base = leaf_from_bytes(blob, base_info["meta"], device=device)
+        stats.bytes_logical += nbytes
+    # the parts go to the leaf unjoined: a tensor copies them once, into
+    # its (pinned, on a card) staging buffer
+    base = leaf_from_bytes(parts, base_info["meta"], device=device)
 
     out: Dict[str, Any] = {}
     for m in manifest["members"]:

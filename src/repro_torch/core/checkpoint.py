@@ -25,7 +25,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from repro_torch.core import delta as delta_mod
 from repro_torch.core import hashing
-from repro_torch.core.chunkstore import ChunkCache, ChunkStore, chunk_key
+from repro_torch.core.chunkstore import ChunkCache, ChunkStore, chunk_keys
 from repro_torch.core.covariable import CovKey, LeafRecord
 from repro_torch.core.graph import key_str
 from repro_torch.core.serialize import (SerializationError, alias_key,
@@ -124,10 +124,9 @@ def _try_delta_manifest(base, det_hex: List[str], prev_manifest,
                          "n": prev_chunks[i]["n"]}
             stats.chunks_reused += 1
 
-    def _store(i: int, cdata, frame=None) -> None:
+    def _store(i: int, cdata, frame, ck: str) -> None:
         # the key is ALWAYS over the logical bytes — codec frames are a
         # storage representation, invisible to dedup and manifests
-        ck = chunk_key(cdata)
         if has(ck):
             stats.chunks_dedup += 1
         elif frame is not None and put_stored is not None:
@@ -140,10 +139,11 @@ def _try_delta_manifest(base, det_hex: List[str], prev_manifest,
             stats.bytes_written += len(cdata)
         chunks[i] = {"key": ck, "n": len(cdata)}
 
+    # (chunk index, logical bytes, stored frame or None) of every dirty chunk
+    items: List[Tuple[int, bytes, Optional[bytes]]] = []
     if use_pack:
         # fused device path: dirty chunks come out of the kernel's
-        # compacted buffer — the puts above enqueue into the (possibly
-        # async) writer while the reader keeps the *next* segment's
+        # compacted buffer, the reader keeping the *next* segment's
         # device→host DMA in flight (DESIGN.md §15).  With the on-device
         # codec engaged the rows cross PCIe as bit-plane frames and are
         # stored as-is (put_stored); keys stay logical-byte either way.
@@ -153,13 +153,10 @@ def _try_delta_manifest(base, det_hex: List[str], prev_manifest,
         # device path cannot bitcast bool arrays, so they never reach its
         # codec): the stored bytes stay identical across the two packages
         if put_stored is not None and meta["dtype"] != "bool":
-            for i, cdata, frame in pack.read_chunks_encoded(dirty):
-                stats.bytes_serialized += len(cdata)
-                _store(i, cdata, frame)
+            items = list(pack.read_chunks_encoded(dirty))
         else:
-            for i, cdata in pack.read_chunks(dirty):
-                stats.bytes_serialized += len(cdata)
-                _store(i, cdata)
+            items = [(i, cdata, None) for i, cdata in pack.read_chunks(dirty)]
+        stats.bytes_serialized += sum(len(c) for _, c, _ in items)
         stats.chunks_encoded += pack.codec_chunks_encoded - enc0
         stats.chunks_codec_skipped += pack.codec_chunks_skipped - skip0
         stats.bytes_dev2host += pack.bytes_transferred
@@ -171,7 +168,11 @@ def _try_delta_manifest(base, det_hex: List[str], prev_manifest,
             for i in range(start, stop):
                 clo = i * chunk_bytes - lo
                 chi = min((i + 1) * chunk_bytes, n) - lo
-                _store(i, data[clo:chi])
+                items.append((i, data[clo:chi], None))
+    # keys hash on the pool; the puts then run in chunk order, as before
+    keys = chunk_keys([cdata for _, cdata, _ in items])
+    for (i, cdata, frame), ck in zip(items, keys):
+        _store(i, cdata, frame, ck)
     return {"members": members, "unserializable": False,
             "base": {"meta": meta, "nbytes": n, "chunks": chunks,
                      "det_hashes": det_hex}}
@@ -239,19 +240,32 @@ def build_manifest(store: ChunkStore, key: CovKey,
     n_chunks = max(-(-n // chunk_bytes), 1) if n else 0
     stats.bytes_serialized += n
     stats.bytes_logical += n
-    for i in range(n_chunks):
-        lo, hi = i * chunk_bytes, min((i + 1) * chunk_bytes, n)
+
+    def unchanged(i: int) -> Optional[dict]:
+        """The previous chunk ``i`` when its detection hash is unchanged."""
         prev = prev_chunks.get(i)
         if prev is not None and i < len(det_hex) and prev["det"] == det_hex[i]:
+            return prev
+        return None
+
+    reuse = [unchanged(i) for i in range(n_chunks)]
+    # keys of the chunks to write, hashed on the pool over views of the blob
+    view = memoryview(blob)
+    fresh = [i for i, prev in enumerate(reuse) if prev is None]
+    keys = dict(zip(fresh, chunk_keys(
+        [view[i * chunk_bytes:(i + 1) * chunk_bytes] for i in fresh])))
+    for i, prev in enumerate(reuse):
+        lo, hi = i * chunk_bytes, min((i + 1) * chunk_bytes, n)
+        if prev is not None:
             # unchanged chunk: reference previous storage, no hashing/copy
             chunks.append({"key": prev["key"], "n": prev["n"]})
             stats.chunks_reused += 1
             continue
-        data = blob[lo:hi]
-        ck = chunk_key(data)
+        ck = keys[i]
         if has(ck):
             stats.chunks_dedup += 1
         else:
+            data = blob[lo:hi]
             put(ck, data)
             stats.chunks_written += 1
             stats.bytes_written += len(data)

@@ -36,6 +36,26 @@ def chunk_key(data: bytes) -> str:
     return hashlib.blake2b(data, digest_size=16).hexdigest()
 
 
+KEY_TASK_BYTES = 1 << 20    # bytes a pool task hashes: small chunks go in
+                            # groups, so dispatch stays a small share
+
+
+def chunk_keys(bufs: Sequence) -> List[str]:
+    """``chunk_key`` of each buffer, in order, hashed on the shared pool in
+    groups of about KEY_TASK_BYTES (blake2b releases the GIL on buffers
+    over 2 KiB, so the groups hash in parallel)."""
+    groups: List[list] = [[]]
+    size = 0
+    for b in bufs:
+        if size >= KEY_TASK_BYTES:
+            groups.append([])
+            size = 0
+        groups[-1].append(b)
+        size += len(b)
+    return [k for g in parallel.map_parallel(
+        lambda g: [chunk_key(b) for b in g], groups) for k in g]
+
+
 # ---------------------------------------------------------------------------
 # per-chunk codec layer
 # ---------------------------------------------------------------------------

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import pickle
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -184,36 +184,72 @@ def leaf_to_bytes(x: Any) -> Tuple[bytes, dict]:
         raise SerializationError(str(e)) from e
 
 
+def _byte_parts(data) -> List[np.ndarray]:
+    """``data`` (bytes-like, a numpy array, or a sequence of such parts
+    laid end to end) as flat uint8 arrays, without copying."""
+    if isinstance(data, (bytes, bytearray, memoryview, np.ndarray)):
+        data = [data]
+    return [p.reshape(-1).view(np.uint8) if isinstance(p, np.ndarray)
+            else np.frombuffer(p, np.uint8) for p in data]
+
+
 def tensor_from_bytes(data, dtype: str, shape,
                       device: Union[str, torch.device]) -> torch.Tensor:
-    """Rebuild a tensor from its byte image (bytes or a uint8 numpy array).
+    """Rebuild a tensor from its byte image: bytes, a uint8 numpy array, or
+    a sequence of such parts laid end to end (a manifest's chunks).
     The result owns its storage (no ``_base``), so it is its own alias base
     with exactly this dtype and shape; the bytes are copied in raw, so
-    bf16/fp8 never pass through numpy."""
+    bf16/fp8 never pass through numpy.  The image is copied once on the
+    host: straight into the tensor on the CPU; on a card into pinned
+    memory, from which it is copied to the card asynchronously on the
+    current stream (the caching host allocator keeps the pinned block until
+    that copy is done)."""
     out = torch.empty(list(shape), dtype=torch_dtype(dtype), device=device)
-    raw = np.frombuffer(data, np.uint8) if not isinstance(data, np.ndarray) \
-        else data.reshape(-1).view(np.uint8)
-    if raw.size:
-        tensor_bytes_u8(out).copy_(torch.from_numpy(raw.copy()))
+    dst = tensor_bytes_u8(out)
+    parts = _byte_parts(data)
+    nbytes = sum(p.size for p in parts)
+    if nbytes != dst.numel():
+        raise SerializationError(
+            f"{nbytes} bytes for a {dtype} tensor of shape {list(shape)} "
+            f"({dst.numel()} bytes)")
+    if not nbytes:
+        return out
+    stage = torch.empty(dst.numel(), dtype=torch.uint8, pin_memory=True) \
+        if out.is_cuda else dst
+    host = stage.numpy()
+    off = 0
+    for p in parts:
+        host[off:off + p.size] = p
+        off += p.size
+    if out.is_cuda:
+        dst.copy_(stage, non_blocking=True)
     return out
 
 
-def leaf_from_bytes(data: bytes, meta: dict, *,
+def _restores_as_tensor(meta: dict, device) -> bool:
+    if device is None:
+        return False
+    return meta["kind"] == "prng" or (
+        meta["kind"] == "array" and bool(meta.get("jax"))
+        and not meta.get("dtype_descr"))
+
+
+def leaf_from_bytes(data, meta: dict, *,
                     device: Optional[torch.device] = None) -> Any:
     """Inverse of :func:`leaf_to_bytes`.  Device-array leaves (``"jax":
     true``, and JAX key data) become tensors on ``device``; with
-    ``device=None`` they stay numpy, like every host array."""
+    ``device=None`` they stay numpy, like every host array.  ``data`` is
+    the leaf's bytes or a sequence of parts laid end to end; a tensor leaf
+    copies the parts straight into its staging buffer, any other leaf
+    joins them first."""
+    if _restores_as_tensor(meta, device):
+        return tensor_from_bytes(data, meta["dtype"], meta["shape"], device)
+    if not isinstance(data, (bytes, bytearray, memoryview, np.ndarray)):
+        data = b"".join(data)
     if meta["kind"] == "prng":
-        if device is not None:
-            return tensor_from_bytes(data, meta["dtype"], meta["shape"],
-                                     device)
         return np.frombuffer(data, dtype=np.dtype(meta["dtype"])) \
             .reshape(meta["shape"]).copy()
     if meta["kind"] == "array":
-        if meta.get("jax") and device is not None \
-                and not meta.get("dtype_descr"):
-            return tensor_from_bytes(data, meta["dtype"], meta["shape"],
-                                     device)
         if meta.get("dtype_descr"):
             dt = np.dtype([tuple(d) for d in meta["dtype_descr"]])
         else:

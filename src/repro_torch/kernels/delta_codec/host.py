@@ -87,31 +87,53 @@ def _words_of(data: bytes, gw: int) -> np.ndarray:
     return buf.view("<u4").reshape(-1, gw)[:n_groups]
 
 
+# the five butterfly stages of a 32 x 32 bit-matrix transpose: at stage
+# (j, m) row r and row r + j (r & j == 0) swap the j x j blocks off the
+# diagonal, m selecting the columns c with c & j == 0
+_BUTTERFLY = ((16, 0x0000FFFF), (8, 0x00FF00FF), (4, 0x0F0F0F0F),
+              (2, 0x33333333), (1, 0x55555555))
+
+
+def transpose32(a: np.ndarray) -> np.ndarray:
+    """Bit transpose of every 32 x 32 bit matrix of ``a`` (uint32
+    [..., 32, n], rows on axis -2): returns ``b`` with bit ``c`` of
+    ``b[..., r, j]`` equal to bit ``r`` of ``a[..., c, j]``.  Five
+    butterfly stages over all matrices at once (rows first, so each stage
+    runs on long contiguous runs), a shift, two xors and an and per word
+    pair each, in place of 32 passes of one bit each."""
+    rows = np.array(np.moveaxis(a, -2, 0), dtype="<u4", order="C")
+    flat = rows.reshape(32, -1)
+    n = flat.shape[1]
+    t = np.empty((16, n), "<u4")
+    for j, m in _BUTTERFLY:
+        v = flat.reshape(32 // (2 * j), 2, j, n)
+        lo, hi = v[:, 0], v[:, 1]
+        tv = t.reshape(32 // (2 * j), j, n)
+        np.right_shift(lo, np.uint32(j), out=tv)
+        tv ^= hi
+        tv &= np.uint32(m)
+        hi ^= tv
+        tv <<= np.uint32(j)
+        lo ^= tv
+    return np.moveaxis(rows, 0, -2)
+
+
 def plane_split(groups: np.ndarray) -> np.ndarray:
     """Bitshuffle: uint32 [n_groups, gw] -> planes [n_groups, 32, gw//32].
 
     Bit ``k`` of plane word ``j`` in plane ``p`` is bit ``p`` of source word
     ``j*32 + k`` — identical packing to the device kernels."""
     ng, gw = groups.shape
-    w = groups.reshape(ng, gw // 32, 32).astype("<u4")
-    shifts = np.arange(32, dtype=np.uint32)
-    planes = np.empty((ng, 32, gw // 32), dtype="<u4")
-    for p in range(32):
-        bits = (w >> np.uint32(p)) & np.uint32(1)
-        planes[:, p, :] = np.bitwise_or.reduce(bits << shifts, axis=2)
-    return planes
+    w = groups.reshape(ng, gw // 32, 32)
+    return np.ascontiguousarray(transpose32(w.transpose(0, 2, 1)))
 
 
 def plane_join(planes: np.ndarray) -> np.ndarray:
     """Inverse of :func:`plane_split`: planes [ng, 32, gw//32] -> words
     [ng, gw]."""
     ng, _, pw = planes.shape
-    shifts = np.arange(32, dtype=np.uint32)
-    words = np.zeros((ng, pw, 32), dtype="<u4")
-    for p in range(32):
-        bits = (planes[:, p, :, None] >> shifts) & np.uint32(1)
-        words |= bits << np.uint32(p)
-    return words.reshape(ng, pw * 32)
+    return np.ascontiguousarray(transpose32(planes).transpose(0, 2, 1)) \
+        .reshape(ng, pw * 32)
 
 
 def classify_planes(planes: np.ndarray):
@@ -178,17 +200,28 @@ def bitplane_decompress(payload: bytes) -> bytes:
     if len(payload) != masks_end + total * pw * 4:
         raise ValueError("bitplane payload: plane stream length mismatch")
     flat = np.frombuffer(payload, "<u4", offset=masks_end).reshape(total, pw)
+    words = words_from_planes(masks, flat, gw)
+    return words.view(np.uint8).reshape(-1)[:raw_len].tobytes()
 
-    planes = np.zeros((n_groups, 32, pw), dtype="<u4")
+
+def words_from_planes(masks: np.ndarray, stored: np.ndarray, gw: int
+                      ) -> np.ndarray:
+    """Groups of words uint32 [ng, gw] from per-group (stored_mask,
+    ones_mask) pairs uint32 [ng, 2] and the stored planes uint32
+    [n_stored, gw//32] in (group, plane) order: a frame's payload, or a
+    whole device-encoded buffer of rows at once (a row of W words is W//gw
+    consecutive groups).  Raises ValueError on a plane both stored and
+    all-ones."""
+    ng, pw = masks.shape[0], gw // 32
     shifts = np.arange(32, dtype=np.uint32)
     ones = ((masks[:, 1:2] >> shifts) & np.uint32(1)).astype(bool)
-    planes[ones] = _ALL_ONES
     store = ((masks[:, 0:1] >> shifts) & np.uint32(1)).astype(bool)
     if np.any(store & ones):
         raise ValueError("bitplane payload: stored+ones plane conflict")
-    planes[store] = flat
-    words = plane_join(planes)
-    return words.astype("<u4").tobytes()[:raw_len]
+    planes = np.zeros((ng, 32, pw), dtype="<u4")
+    planes[ones] = _ALL_ONES
+    planes[store] = stored
+    return plane_join(planes)
 
 
 # ---------------------------------------------------------------------------

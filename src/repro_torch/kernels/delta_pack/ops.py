@@ -214,9 +214,10 @@ class DeltaPack:
         the bit-plane codec before they cross PCIe: yields ``(chunk_index,
         logical_bytes, stored_frame)`` where ``stored_frame`` is a
         ready-to-store KZC1 frame (None when the chunk goes raw — rows too
-        narrow for a group, probe veto, or the frame would not save bytes).  Chunk keys
-        stay logical-byte: the logical bytes are rebuilt host-side from the
-        frame itself, so the raw rows never cross."""
+        narrow for a group, probe veto, or the frame would not save bytes).
+        Chunk keys stay logical-byte: the logical bytes are rebuilt
+        host-side from the masks and planes the frames hold, so the raw
+        rows never cross."""
         from repro_torch.kernels.delta_codec import host as codec_host
         from repro_torch.kernels.delta_codec import ops as codec_ops
 
@@ -240,11 +241,15 @@ class DeltaPack:
         frames = codec_host.frames_from_encoded(
             masks, planes, width // gw, gw,
             [self._chunk_len(int(ci)) for ci in self.dirty])
+        # the logical bytes (the chunk keys hash them) are rebuilt on the
+        # host from the masks and planes of every row in one vectorised
+        # pass — what decoding each frame gives; the raw rows never cross
+        rows = codec_host.words_from_planes(masks, planes, gw) \
+            .reshape(self.count, width).view(np.uint8)
         rowmap = self._rowmap()
         for ci in want:
             frame = frames[rowmap[ci]]
-            logical = codec_host.bitplane_decompress(
-                frame[codec_host._FRAME_HDR:])
+            logical = rows[rowmap[ci], :self._chunk_len(ci)].tobytes()
             if len(frame) < len(logical):
                 self.codec_chunks_encoded += 1
                 yield ci, logical, frame

@@ -48,7 +48,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     device = resolve_device(args.device)
     params = lm.init_params(
         cfg, torch.Generator(device=device).manual_seed(0))
-    decode = step_lib.make_decode_step(cfg)
+    # the counterpart of the JAX launcher's jax.jit: a CUDA graph on the
+    # card, the eager step on the CPU
+    decode = step_lib.GraphedDecodeStep(cfg)
 
     b, plen = args.batch, args.prompt_len
     total = plen + args.gen

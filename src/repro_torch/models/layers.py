@@ -19,6 +19,7 @@ Conventions
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -87,13 +88,23 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def rope_table(head_dim: int, theta: float, device: torch.device
+               ) -> torch.Tensor:
+    """The float32 frequencies [head_dim/2] on ``device``, copied there once
+    per (head_dim, theta, device).  A copy from host memory on every call
+    would be illegal inside a CUDA-graph capture (the decode step's); the
+    values are those of :func:`rope_frequencies` rounded to float32, as
+    before.  Callers only read the table."""
+    return torch.tensor(rope_frequencies(head_dim, theta),
+                        dtype=torch.float32, device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """Standard rotary embedding (half-split rotation, float32 angles).
     x: [B,S,H,hd]; positions: [B,S] (int)."""
-    hd = x.shape[-1]
-    freqs = torch.tensor(rope_frequencies(hd, theta), dtype=torch.float32,
-                         device=x.device)
+    freqs = rope_table(x.shape[-1], float(theta), x.device)
     ang = positions[..., None].float() * freqs                  # [B,S,hd/2]
     cos = torch.cos(ang)[:, :, None, :]                         # [B,S,1,hd/2]
     sin = torch.sin(ang)[:, :, None, :]

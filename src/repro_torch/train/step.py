@@ -9,6 +9,7 @@ tied embedding its alias) from one step to the next.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -108,13 +109,115 @@ def make_prefill_step(cfg: ArchConfig):
     return prefill_step
 
 
+def _greedy_step(cfg: ArchConfig, params, caches, batch):
+    """(float32 logits [B,1,V], next token [B,1] int32): ``lm.decode_step``
+    and the greedy pick over the true vocabulary; caches updated in
+    place."""
+    with torch.no_grad():
+        logits, _ = lm.decode_step(cfg, params, caches, batch)
+        nxt = logits[..., :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+    return logits, nxt
+
+
 def make_decode_step(cfg: ArchConfig):
     """``serve_step(params, caches, batch) -> (next_token [B,1] int32,
     caches)``: greedy decode of one token; the caches are updated in
     place."""
     def serve_step(params, caches, batch):
-        with torch.no_grad():
-            logits, caches = lm.decode_step(cfg, params, caches, batch)
-            nxt = logits[..., :cfg.vocab_size].argmax(dim=-1)
-        return nxt.to(torch.int32), caches
+        return _greedy_step(cfg, params, caches, batch)[1], caches
     return serve_step
+
+
+class GraphedDecodeStep:
+    """The greedy decode step replayed from a CUDA graph: the port's
+    counterpart of the JAX package's ``jax.jit(make_decode_step(cfg))``.
+
+    ``step(params, caches, batch)`` returns ``(next_token, caches)`` as
+    :func:`make_decode_step`'s step does; :meth:`with_logits` also returns
+    the float32 logits.  On CPU tensors the eager step runs.  On CUDA the
+    step (about 20,000 eager calls at SmolLM-360M) is captured once into a
+    CUDA graph and replayed:
+
+    - the graph reads a static ``[B,1]`` int32 token buffer and a static
+      0-d int32 index, filled (``copy_`` / ``fill_``) before each replay, so
+      no value of the batch is frozen into it;
+    - it reads the parameters and reads and writes the caches at the
+      addresses it was captured with, so it is keyed on the data pointer,
+      shape, dtype and strides of every parameter and cache leaf.  A new
+      leaf — a checkout that loads a cache leaf in full builds a new tensor
+      — captures again; a replay against storage that is no longer the live
+      leaf would answer wrongly without an error;
+    - its outputs are cloned, since the next replay overwrites them;
+    - capture runs under ``no_grad`` after a warm-up on a side stream over
+      copies of the caches (the step writes its caches in place, so the
+      warm-up must not touch the live ones), into a private memory pool per
+      graph; the step has no host sync.
+
+    A failed capture or replay raises: on CUDA the eager step never runs
+    in the graph's place.  ``captures`` counts captures and ``capture_s``
+    their seconds, apart from the replayed steps."""
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+        self.captures = 0
+        self.capture_s = 0.0
+        self._key = None
+        self._graph = None
+        self._tokens = self._index = self._logits = self._next = None
+
+    def __call__(self, params, caches, batch):
+        _, nxt = self._run(params, caches, batch, logits=False)
+        return nxt, caches
+
+    def with_logits(self, params, caches, batch):
+        """``(logits [B,1,V] float32, next_token [B,1] int32, caches)``."""
+        logits, nxt = self._run(params, caches, batch, logits=True)
+        return logits, nxt, caches
+
+    def _run(self, params, caches, batch, *, logits: bool):
+        tokens = batch["tokens"]
+        if not tokens.is_cuda:
+            return _greedy_step(self.cfg, params, caches, batch)
+        key = (tuple(tokens.shape),) + tuple(
+            (t.data_ptr(), tuple(t.shape), t.dtype, t.stride())
+            for t in tree_leaves(params) + tree_leaves(caches))
+        if key != self._key:
+            self._capture(params, caches, batch, key)
+        self._tokens.copy_(tokens)
+        index = batch["index"]
+        if isinstance(index, torch.Tensor):
+            self._index.copy_(index)
+        else:
+            self._index.fill_(int(index))
+        self._graph.replay()
+        return (self._logits.clone() if logits else None,
+                self._next.clone())
+
+    def _capture(self, params, caches, batch, key) -> None:
+        t0 = time.perf_counter()
+        # drop the old graph and its outputs, so its pool can be freed
+        self._key = self._graph = self._logits = self._next = None
+        dev = batch["tokens"].device
+        self._tokens = torch.empty(tuple(batch["tokens"].shape),
+                                   dtype=torch.int32, device=dev)
+        self._index = torch.zeros((), dtype=torch.int32, device=dev)
+        self._tokens.copy_(batch["tokens"])
+        static = {"tokens": self._tokens, "index": self._index}
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            scratch = tree_map(torch.clone, caches)
+            _greedy_step(self.cfg, params, scratch, static)
+            del scratch
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the session's pool threads may touch the card (a
+        # pinned copy, an allocation) while a cell captures
+        with torch.no_grad(), torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
+            self._logits, self._next = _greedy_step(self.cfg, params, caches,
+                                                    static)
+        self._graph, self._key = graph, key
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0

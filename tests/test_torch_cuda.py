@@ -652,3 +652,222 @@ def test_serve_flow_checkouts_verify_on_the_card(dev):
     counts = _lib.launches()
     assert counts["chunk_hash"] > 0 and counts["delta_pack"] > 0 \
         and counts["block_diff"] > 0, counts
+
+
+# ---------------------------------------------------------------------------
+# the graphed decode step, train replay, pinned loads
+# ---------------------------------------------------------------------------
+
+def _serve_setup(dev, dtype="bfloat16"):
+    from repro_torch.models import lm
+    from repro_torch.models.config import get_config
+    from repro_torch.models.testing import reduced
+    cfg = reduced(get_config("smollm-360m")).replace(dtype=dtype)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    return cfg, params
+
+
+def _leaves_equal(a, b):
+    from repro_torch.optim.adamw import tree_leaves
+    return all(torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_graphed_decode_step_equals_eager_bit_for_bit(dev, dtype):
+    """72 steps (8 teacher-forced, 64 greedy) through the CUDA graph and
+    through the eager step: the same tokens, logits and cache bytes at
+    every step, from one capture."""
+    from repro_torch.models import lm
+    from repro_torch.train.step import (make_decode_step,
+                                        GraphedDecodeStep)
+    cfg, params = _serve_setup(dev, dtype)
+    b, prompt, steps = 3, 8, 72
+    toks = torch.randint(0, cfg.vocab_size, (b, prompt),
+                         generator=torch.Generator().manual_seed(5),
+                         dtype=torch.int32).to(dev)
+    eager, graphed = make_decode_step(cfg), GraphedDecodeStep(cfg)
+    ce = lm.init_caches(cfg, b, steps + 1)
+    cg = lm.init_caches(cfg, b, steps + 1)
+    tok = toks[:, :1]
+    for t in range(steps):
+        with torch.no_grad():
+            want, _ = lm.decode_step(cfg, params, ce,
+                                     {"tokens": tok, "index": t})
+        want_tok = want[..., :cfg.vocab_size].argmax(-1).to(torch.int32)
+        lg, nxt, cg2 = graphed.with_logits(params, cg,
+                                           {"tokens": tok, "index": t})
+        assert cg2 is cg and nxt.is_cuda and lg.is_cuda
+        assert torch.equal(lg, want), t
+        assert torch.equal(nxt, want_tok), t
+        assert _leaves_equal(cg, ce), t
+        tok = toks[:, t + 1:t + 2] if t + 1 < prompt else nxt
+    assert graphed.captures == 1 and graphed.capture_s > 0
+    # the plain call, replayed from the same graph, and the eager step
+    n_e, _ = eager(params, ce, {"tokens": tok, "index": steps})
+    n_g, _ = graphed(params, cg, {"tokens": tok, "index": steps})
+    assert torch.equal(n_g, n_e) and _leaves_equal(cg, ce)
+    assert graphed.captures == 1
+
+
+def test_graphed_decode_recaptures_after_a_full_load(dev):
+    """A checkout that loads a cache leaf in full (the 0-d-per-unit
+    ``index`` leaf, all of whose bytes differ) builds a new tensor: the
+    graph captures again, and its generation equals the eager step's from
+    the same checkout."""
+    from repro_torch.core import KishuSession, MemoryStore
+    from repro_torch.models import lm
+    from repro_torch.train.step import (make_decode_step,
+                                        GraphedDecodeStep)
+    cfg, params = _serve_setup(dev)
+    graphed, eager = GraphedDecodeStep(cfg), make_decode_step(cfg)
+    b, prefix, gen = 2, 6, 5
+    prompts = torch.randint(0, cfg.vocab_size, (b, prefix),
+                            generator=torch.Generator().manual_seed(3),
+                            dtype=torch.int32).to(dev)
+
+    def prefill(ns):
+        caches = lm.init_caches(cfg, b, prefix + 2 * gen)
+        tok = prompts[:, :1]
+        for t in range(prefix):
+            tok, caches = graphed(params, caches, {"tokens": tok,
+                                                   "index": t})
+            if t + 1 < prefix:
+                tok = prompts[:, t + 1:t + 2]
+        ns.set_tree("caches", caches)
+        ns["last_tok"] = tok
+        ns["pos"] = prefix
+
+    def generate_with(step):
+        def generate(ns, n):
+            caches = ns.get_tree("caches")
+            tok, pos, outs = ns["last_tok"], ns["pos"], []
+            for t in range(n):
+                tok, caches = step(params, caches, {"tokens": tok,
+                                                    "index": pos + t})
+                outs.append(tok)
+            ns.set_tree("caches", caches)
+            ns["last_tok"], ns["pos"] = tok, pos + n
+            ns["generated"] = torch.cat(outs, 1)
+        return generate
+
+    sess = KishuSession(MemoryStore(), chunk_bytes=1 << 12)
+    sess.register("prefill", prefill)
+    sess.register("generate", generate_with(graphed))
+    sess.register("generate_eager", generate_with(eager))
+    sess.init_state({})
+    c0 = sess.run("prefill")
+    sess.run("generate", n=gen)
+    assert graphed.captures == 1
+    first = sess.ns["generated"].clone()
+    name = "caches/stages/stage_0/sub_0/attn/index"
+    before = sess.ns[name].data_ptr()
+    st = sess.checkout(c0)
+    assert st.covs_loaded > 0 and sess.ns[name].data_ptr() != before
+    sess.run("generate", n=gen)
+    assert graphed.captures == 2
+    assert torch.equal(sess.ns["generated"], first)
+    graphed_caches = {n: sess.ns[n].clone() for n in sess.ns.names()
+                      if n.startswith("caches/")}
+    sess.checkout(c0)
+    sess.run("generate_eager", n=gen)
+    assert torch.equal(sess.ns["generated"], first)
+    for n, t in graphed_caches.items():
+        assert torch.equal(sess.ns[n], t), n
+    sess.close()
+
+
+def test_graphed_decode_failures_raise(dev, monkeypatch):
+    """A failed capture or replay raises; the eager step never runs in the
+    graph's place, so the live caches stay as they were."""
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import GraphedDecodeStep
+    cfg, params = _serve_setup(dev)
+    caches = lm.init_caches(cfg, 2, 4)
+    snap = [t.clone() for t in tree_leaves(caches)]
+    batch = {"tokens": torch.zeros((2, 1), dtype=torch.int32, device=dev),
+             "index": 0}
+
+    class FailingGraph:
+        def __init__(self, *a, **k):
+            pass
+
+        def __enter__(self):
+            raise RuntimeError("injected capture failure")
+
+        def __exit__(self, *exc):
+            return False
+
+    step = GraphedDecodeStep(cfg)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "graph", FailingGraph)
+        with pytest.raises(RuntimeError, match="injected capture failure"):
+            step(params, caches, batch)
+    assert step.captures == 0
+
+    def failing_replay(self):
+        raise RuntimeError("injected replay failure")
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda.CUDAGraph, "replay", failing_replay)
+        with pytest.raises(RuntimeError, match="injected replay failure"):
+            step(params, caches, batch)
+    assert step.captures == 1
+    for t, want in zip(tree_leaves(caches), snap):   # nothing ran eagerly
+        assert torch.equal(t, want)
+    nxt, _ = step(params, caches, batch)             # the graph, unpatched
+    assert nxt.is_cuda and step.captures == 1
+
+
+def test_train_phase_replays_exactly_on_the_card(dev):
+    """A train phase run again from its parent commit reproduces the
+    committed state bit for bit (block_diff), as Kishu's fallback
+    recomputation assumes; both commits are recorded replay-safe."""
+    from repro_torch.core import MemoryStore
+    from repro_torch.core.delta import exact_dirty_indices
+    from repro_torch.models.config import get_config
+    from repro_torch.models.testing import reduced
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import ManagedTrainingSession
+
+    cfg = reduced(get_config("qwen3-1.7b"), n_layers=2)
+    s = ManagedTrainingSession(cfg, AdamWConfig(lr=1e-3), MemoryStore(),
+                               global_batch=4, seq_len=32, chunk_bytes=4096)
+    c0 = s.attach(seed=0)
+    c1 = s.train(3)
+    want = {n: s.ns[n].clone() for n in s.ns.names()
+            if isinstance(s.ns[n], torch.Tensor)}
+    loss = s.ns["metrics/last_loss"]
+    for _ in range(2):
+        s.checkout(c0)
+        c = s.train(3)
+        assert s.ns["metrics/last_loss"] == loss
+        for n, t in want.items():
+            assert exact_dirty_indices(s.ns[n], t, 4096) == [], n
+        assert s.kishu.graph.nodes[c].stats["replay_safe"] is True
+    assert s.kishu.graph.nodes[c1].stats["replay_safe"] is True
+    s.close()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32", "uint8",
+                                   "bool", "float16"])
+def test_tensor_from_bytes_through_pinned_memory(dev, dtype):
+    """A load stages its parts in pinned memory and copies them to the card
+    asynchronously: the same bytes, dtype and shape as on the CPU."""
+    import numpy as np
+    from repro_torch.core import serialize as ser
+    shape = (37, 129)
+    item = torch.empty((), dtype=ser.torch_dtype(dtype)).element_size()
+    n = 37 * 129 * item
+    raw = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
+    if dtype == "bool":
+        raw &= 1
+    data = raw.tobytes()
+    parts = [data[:1000], data[1000:1000], data[1000:]]
+    want = ser.tensor_from_bytes(data, dtype, shape, "cpu")
+    for given_ in (data, raw, parts):
+        got = ser.tensor_from_bytes(given_, dtype, shape, dev)
+        assert got.is_cuda and got.dtype == want.dtype
+        assert tuple(got.shape) == shape and got._base is None
+        assert ser.tensor_to_bytes(got) == data \
+            == ser.tensor_to_bytes(want)           # bytes: random floats
