@@ -19,10 +19,12 @@ Phase 1  holds every kernel against its plain torch version on the card at
          the tensor-core route "tc" and the FMA route; float32: FMA), and
          timed beside SDPA.  Every kernel, index_copy_, the block_diff
          library call and SDPA are timed by device time (CUDA-graph replay,
-         5 rounds in turns; median and range) beside the host loop of
-         earlier runs; chunk_hash, delta_pack (scan + gather), delta_codec
-         (classify + emit) and block_diff through their C entries, since
-         their wrappers read a count back mid-call.
+         5 rounds in turns; median and range), with the L2 warm and with
+         it cold (a 128 MiB write before each call, its own time taken
+         off), beside the host loop; chunk_hash, delta_pack (scan +
+         gather), delta_codec and block_diff through their C entries,
+         since their wrappers read a count or masks back.  delta_codec is
+         also timed on random words, whose planes are all stored.
 Phase 2  the main path: a ``KishuSession`` on a ``dir://`` store commits a
          SmolLM-360M-shaped fine-tuning state (fp32 params + AdamW m and v,
          870 tensors, 4.34 GB, random from a seeded CUDA generator), runs an
@@ -87,11 +89,14 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BF16_FLOPS_PER_S = 989e12
 FP32_FLOPS_PER_S = 67e12
 HASH_OPS_PER_WORD = 18               # kernel's integer ops per hashed word
-# least integer ops per word the codec's function needs (not this kernel's
-# ballot design): a 32 x 32 bit transpose in 5 butterfly stages, each a
-# shift, an xor and an and per word (6 ops per swapped pair of words), plus
-# an OR and an AND per plane word to classify planes as zero or ones
+# least integer ops per word the codec's function needs: a 32 x 32 bit
+# transpose in 5 butterfly stages, each a shift, an xor and an and per word
+# (6 ops per swapped pair of words), plus an OR and an AND per plane word
+# to classify planes as zero or ones
 CODEC_OPS_PER_WORD = 5 * 3 + 2
+# the buffer device_ms writes before each call of a cold-L2 time: over
+# twice the H100's 50 MB L2
+L2_FLUSH_BYTES = 128 << 20
 
 # SmolLM-360M (hf:HuggingFaceTB/SmolLM-360M): 32 layers, d_model 960,
 # 15 query / 5 key-value heads of 64, d_ff 2560, vocab 49152, tied embeddings
@@ -175,13 +180,31 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fns: dict, calls: int, rounds: int = 5) -> dict:
+def device_ms(torch, fns: dict, calls: int, rounds: int = 5,
+              cold: bool = False) -> dict:
     """Device time per call of each function in ``fns`` (name -> fn): its
     ``calls`` calls are captured in one CUDA graph, and each graph's replay
     is timed with CUDA events, ``rounds`` times in turns (a, b, ..., b, a),
     so two samples a round.  The host's enqueue is outside the timed span.
-    Returns name -> {median, min, max, samples} in ms per call."""
+    Returns name -> {median, min, max, samples} in ms per call.
+
+    With ``cold``, each function is also captured with a write of
+    L2_FLUSH_BYTES (over twice the L2) before each of its calls, a graph of
+    the writes alone is timed in the same turns, and name -> "cold" holds
+    the per-call difference of the two, sample by sample: the call's time
+    when none of its data is in L2."""
     import statistics
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda") if cold else None
+
+    def capture(body):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                body()
+        g.replay()
+        return g
+
     graphs = {}
     for name, fn in fns.items():
         side = torch.cuda.Stream()
@@ -190,17 +213,17 @@ def device_ms(torch, fns: dict, calls: int, rounds: int = 5) -> dict:
             fn()                      # warm-up off the capture
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(calls):
-                fn()
-        g.replay()
-        graphs[name] = g
+        graphs[name] = capture(fn)
+        if cold:
+            graphs[f"{name} cold"] = capture(
+                lambda fn=fn: (flush.zero_(), fn()))
+    if cold:
+        graphs["flush"] = capture(flush.zero_)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    samples: dict = {name: [] for name in fns}
-    order = list(fns)
+    samples: dict = {name: [] for name in graphs}
+    order = list(graphs)
     for _ in range(rounds):
         for name in order + order[::-1]:
             start.record()
@@ -208,15 +231,25 @@ def device_ms(torch, fns: dict, calls: int, rounds: int = 5) -> dict:
             end.record()
             end.synchronize()
             samples[name].append(start.elapsed_time(end) / calls)
-    del graphs
+    del graphs, flush
     torch.cuda.synchronize()
-    return {name: {"median": statistics.median(v), "min": min(v),
-                   "max": max(v), "samples": v}
-            for name, v in samples.items()}
+
+    def stats(v):
+        return {"median": statistics.median(v), "min": min(v),
+                "max": max(v), "samples": v}
+    out = {name: stats(samples[name]) for name in fns}
+    if cold:
+        for name in fns:
+            out[name]["cold"] = stats([a - b for a, b in zip(
+                samples[f"{name} cold"], samples["flush"])])
+    return out
 
 
 def spread(d: dict) -> str:
-    return f"{d['median']:.4f} ms [{d['min']:.4f}-{d['max']:.4f}]"
+    text = f"{d['median']:.4f} ms [{d['min']:.4f}-{d['max']:.4f}]"
+    if "cold" in d:
+        text += f", cold-L2 {spread(d['cold'])}"
+    return text
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S):
@@ -237,6 +270,8 @@ def phase1(torch, dev) -> list:
                                                     block_diff_plain)
     from repro_torch.kernels.chunk_hash.ops import chunk_hash_cuda
     from repro_torch.kernels.delta_codec import host as codec_host
+    from repro_torch.kernels.delta_codec.ops import TILE_GROUPS as \
+        CODEC_TILE_GROUPS
     from repro_torch.kernels.delta_codec.ops import (codec_encode_cuda,
                                                      codec_encode_plain,
                                                      i32_bits, u32_values)
@@ -278,7 +313,7 @@ def phase1(torch, dev) -> list:
         h_out.zero_()
         _lib.call("kishu_chunk_hash", u8.data_ptr(), nbytes, CB, h_splits,
                   h_out.data_ptr(), _lib.stream_of(u8))
-    dev_t = device_ms(torch, {"kernel": hash_raw}, 20)
+    dev_t = device_ms(torch, {"kernel": hash_raw}, 20, cold=True)
     check(torch.equal(h_out.to(torch.int64) & MASK32, p),
           "chunk_hash's C entry != plain after the timed replays")
     rows_out.append({
@@ -327,7 +362,7 @@ def phase1(torch, dev) -> list:
         _lib.call("kishu_delta_pack_gather", u8b.data_ptr(), nbytes, CB,
                   p_splits, p_pos.data_ptr(), p_buf.data_ptr(),
                   _lib.stream_of(u8b))
-    dev_t = device_ms(torch, {"kernel": pack_raw}, 20)
+    dev_t = device_ms(torch, {"kernel": pack_raw}, 20, cold=True)
     check(int(p_count.item()) == kcount and torch.equal(p_hash, kh)
           and torch.equal(p_pos, kpos) and torch.equal(p_buf, kbuf),
           "delta_pack's C entries != the wrapper after the timed replays")
@@ -344,7 +379,9 @@ def phase1(torch, dev) -> list:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"fp32 [{VOCAB}, {D_MODEL}], {kcount} of {n} chunks dirty"})
 
-    # -- delta_codec: the compacted rows of a zeroed AdamW-moment slice
+    # -- delta_codec: the compacted rows of a zeroed AdamW-moment slice, and
+    #    random words of the same shape, whose planes are all stored (the
+    #    worst-case plane buffer fills)
     m0 = torch.empty((VOCAB, D_MODEL), device=dev).normal_(0, 1e-3,
                                                            generator=g)
     m1 = m0.clone()
@@ -352,15 +389,26 @@ def phase1(torch, dev) -> list:
     _, _, _, mcount, rows = delta_pack_cuda(
         m1.view(-1).view(torch.uint8),
         i32_bits(chunk_hashes_plain(m0.view(-1).view(torch.uint8), CB)), CB)
+    rnd = torch.randint(-2**31, 2**31 - 1, tuple(rows.shape), device=dev,
+                        dtype=torch.int32, generator=g)
     gw = 1024
-    km, kn, kp = codec_encode_cuda(rows, gw)
-    pm, pn, pp = codec_encode_plain(u32_values(rows), gw)
-    check(kn == pn > 0, f"codec stored planes {kn} vs {pn}")
-    outs = [(km.to(torch.int64) & MASK32, pm), (kp, i32_bits(pp))]
-    check(all(torch.equal(a.to(torch.int64), b.to(torch.int64))
-              for a, b in outs), "delta_codec != plain")
-    err = max(max_abs_err(torch, a, b) for a, b in outs)
-    masks = km.cpu().numpy().view("<u4")
+    ng = rows.numel() // gw
+    codec = {}
+    errs = []
+    for label, x in (("zeroed", rows), ("random", rnd)):
+        km, kn, kp = codec_encode_cuda(x, gw)
+        pm, pn, pp = codec_encode_plain(u32_values(x), gw)
+        check(kn == pn > 0, f"codec {label}: stored planes {kn} vs {pn}")
+        outs = [(km.to(torch.int64) & MASK32, pm.cpu()),
+                (kp, i32_bits(pp))]
+        check(all(torch.equal(a.to(torch.int64), b.to(torch.int64))
+                  for a, b in outs), f"delta_codec != plain ({label})")
+        errs += [max_abs_err(torch, a, b) for a, b in outs]
+        codec[label] = (x, km, kn, kp)
+    check(codec["random"][2] == ng * 32,
+          f"random words stored {codec['random'][2]} of {ng * 32} planes")
+    _, km, kn, kp = codec["zeroed"]
+    masks = km.numpy().view("<u4")
     planes = kp.cpu().numpy().view("<u4")
     frames = codec_host.frames_from_encoded(masks, planes, (CB // 4) // gw,
                                             gw, [CB] * mcount)
@@ -369,39 +417,61 @@ def phase1(torch, dev) -> list:
         want = codec_host.make_frame(
             codec_host.bitplane_compress(host_rows[r].tobytes(), gw), CB)
         check(frames[r] == want, f"device frame {r} != host bitplane frame")
+    # the bound of each case: one read of the rows, one write of the masks
+    # and of the planes that case stores
     rw = rows.numel()
-    b_ms, b_by = bound(rw * 4 + masks.nbytes + planes.nbytes,
-                       CODEC_OPS_PER_WORD * rw)
-    # classify + emit, the plane buffer sized by the earlier call's count
-    ng = km.shape[0]
-    c_masks = torch.empty_like(km)
-    c_offsets = torch.empty((ng,), dtype=torch.int32, device=dev)
-    c_total = torch.empty((1,), dtype=torch.int32, device=dev)
-    c_planes = torch.empty_like(kp)
+    bounds = {label: bound(rw * 4 + 8 * ng + codec[label][2] * (gw // 8),
+                           CODEC_OPS_PER_WORD * rw) for label in codec}
+    # the C entry alone (its one launch) into buffers of the sizes the
+    # wrapper allocates; the wrapper's read-back of the masks and the count
+    # stays outside the timed graph
+    c_bufs = {label: (torch.empty((2 * ng + 1,), dtype=torch.int32,
+                                  device=dev),
+                      torch.empty((ng * 32, gw // 32), dtype=torch.int32,
+                                  device=dev),
+                      torch.zeros((-(-ng // CODEC_TILE_GROUPS) + 1,),
+                                  dtype=torch.int64, device=dev))
+              for label in codec}
 
-    def codec_raw():
-        _lib.call("kishu_codec_classify", rows.data_ptr(), ng, gw,
-                  c_masks.data_ptr(), c_offsets.data_ptr(),
-                  c_total.data_ptr(), _lib.stream_of(rows))
-        _lib.call("kishu_codec_emit", rows.data_ptr(), ng, gw,
-                  c_masks.data_ptr(), c_offsets.data_ptr(),
-                  c_planes.data_ptr(), _lib.stream_of(rows))
-    dev_t = device_ms(torch, {"kernel": codec_raw}, 20)
-    check(int(c_total.item()) == kn and torch.equal(c_masks, km)
-          and torch.equal(c_planes, kp),
-          "delta_codec's C entries != the wrapper after the timed replays")
+    def codec_raw(label):
+        x = codec[label][0]
+        out, c_planes, status = c_bufs[label]
+        _lib.call("kishu_codec_encode", x.data_ptr(), ng, gw, out.data_ptr(),
+                  out[2 * ng:].data_ptr(), c_planes.data_ptr(),
+                  status.data_ptr(), status.numel(), _lib.stream_of(x))
+    dev_t = device_ms(torch, {label: (lambda label=label: codec_raw(label))
+                              for label in codec}, 20, cold=True)
+    for label, (_, w_masks, w_n, w_planes) in codec.items():
+        out, c_planes, _ = c_bufs[label]
+        host_out = out.cpu()
+        check(int(host_out[2 * ng]) == w_n
+              and torch.equal(host_out[:2 * ng].view(ng, 2), w_masks)
+              and torch.equal(c_planes[:w_n], w_planes),
+              f"delta_codec's C entry != the wrapper after the timed "
+              f"replays ({label})")
+    b_ms, b_by = bounds["zeroed"]
     rows_out.append({
         "name": "delta_codec", "route": "cuda",
         "source": "src/repro_torch/csrc/delta_codec.cu",
         "replaces": "src/repro/kernels/delta_codec/kernel.py:105",
-        "max_abs_err": err, "ms": dev_t["kernel"]["median"],
+        "max_abs_err": max(errs), "ms": dev_t["zeroed"]["median"],
         "host_ms": time_ms(torch, lambda: codec_encode_cuda(rows, gw), 20),
-        "device": dev_t,
+        "device": {"kernel": dev_t["zeroed"]},
         "plain_ms": time_ms(torch,
                             lambda: codec_encode_plain(u32_values(rows), gw),
                             2),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"{mcount} rows x 262144 words, {kn} stored planes"})
+        "random": {"ms": dev_t["random"]["median"],
+                   "cold_ms": dev_t["random"]["cold"]["median"],
+                   "device": dev_t["random"],
+                   "host_ms": time_ms(torch,
+                                      lambda: codec_encode_cuda(rnd, gw), 20),
+                   "bound_ms": bounds["random"][0],
+                   "bound_by": bounds["random"][1],
+                   "stored_planes": codec["random"][2]},
+        "shape": f"{mcount} rows x 262144 words, {ng} groups, {kn} stored "
+                 f"planes"})
+    del codec, c_bufs, rnd
 
     # -- patch_scatter: the dirty chunks back into a live embedding
     idx = dirty_idx.to(torch.int32)
@@ -431,7 +501,8 @@ def phase1(torch, dev) -> list:
     b_ms, b_by = bound(2 * k_rows * CB + 4 * k_rows, 0)
     scatter = lambda: patch_scatter_cuda(a, CB, idx, kbuf)      # noqa: E731
     copy = lambda: words_view.index_copy_(0, lib_idx, kbuf)    # noqa: E731
-    dev_t = device_ms(torch, {"kernel": scatter, "library": copy}, 50)
+    dev_t = device_ms(torch, {"kernel": scatter, "library": copy}, 50,
+                      cold=True)
     rows_out.append({
         "name": "patch_scatter", "route": "cuda",
         "source": "src/repro_torch/csrc/patch_scatter.cu",
@@ -482,7 +553,8 @@ def phase1(torch, dev) -> list:
         _lib.call("kishu_block_diff", u8.data_ptr(), u8b.data_ptr(), nbytes,
                   CB, d_splits, d_flags.data_ptr(), _lib.stream_of(u8))
     diff_lib = lambda: (u8 != u8b).view(n, -1).any(1)          # noqa: E731
-    dev_t = device_ms(torch, {"kernel": diff_raw, "library": diff_lib}, 50)
+    dev_t = device_ms(torch, {"kernel": diff_raw, "library": diff_lib}, 50,
+                      cold=True)
     check(torch.equal(d_flags, kf),
           "block_diff's C entry != the wrapper after the timed replays")
     rows_out.append({
@@ -499,14 +571,22 @@ def phase1(torch, dev) -> list:
         "shape": f"fp32 [{VOCAB}, {D_MODEL}] vs its re-init, {kcount} of {n} "
                  f"chunks of 1 MiB differ"})
     for r in rows_out:
+        r["cold_ms"] = r["device"]["kernel"]["cold"]["median"]
         times = (f"kernel device {spread(r['device']['kernel'])}, host "
                  f"loop {r['host_ms']:.4f} ms")
         if "library" in r["device"]:
+            r["library_cold_ms"] = r["device"]["library"]["cold"]["median"]
             times += (f"; library device {spread(r['device']['library'])},"
                       f" host loop {r['host_library_ms']:.4f} ms")
         print(f"phase1 {r['name']}: bit-identical to plain; {r['shape']}; "
               f"{times}; plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        if "random" in r:
+            c = r["random"]
+            print(f"phase1 {r['name']} random words: {c['stored_planes']} "
+                  f"stored planes; kernel device {spread(c['device'])}, "
+                  f"host loop {c['host_ms']:.4f} ms; bound "
+                  f"{c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
     return rows_out
 
 
@@ -582,7 +662,7 @@ def phase1_flash(torch, dev) -> dict:
         fns["sdpa"] = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True)
         iters = 5 if s > 1024 else 20
-        dev_t = device_ms(torch, fns, iters)
+        dev_t = device_ms(torch, fns, iters, cold=label == "main")
         checks.append({
             "label": label, "shape": [b, s, hq, hkv, hd],
             "dtype": str(dtype).replace("torch.", ""), "causal": causal,
@@ -612,6 +692,8 @@ def phase1_flash(torch, dev) -> dict:
             "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
             **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")},
+            "cold_ms": main["device"][main["route"]]["cold"]["median"],
+            "library_cold_ms": main["device"]["sdpa"]["cold"]["median"],
             "shape": f"bf16 B,S,Hq,Hkv,hd {main['shape']} causal, tc route",
             "checks": checks}
 
@@ -780,6 +862,8 @@ def phase2(torch, dev, workdir: Path) -> dict:
         # and zeroes their moments as the first did
         cycles = [{k: rec[f"{k}_s"] for k in (
             "reinit_vocab_slice", "checkout_back", "checkout_forward")}]
+        cycles[0]["encode_dev"] = \
+            rec["reinit_vocab_slice_stages"].get("encode_dev", 0.0)
         for rep in (1, 2):
             sess.checkout(c_ft)
             stages()
@@ -806,11 +890,14 @@ def phase2(torch, dev, workdir: Path) -> dict:
             del snap
             cycles.append({k: rec[f"{k}_{rep}_s"] for k in (
                 "reinit_vocab_slice", "checkout_back", "checkout_forward")})
+            cycles[-1]["encode_dev"] = \
+                rec[f"{label}_stages"].get("encode_dev", 0.0)
         rec["cycles"] = cycles
         for i, c in enumerate(cycles):
             over = [k for k, v in c.items() if v >= 1.0]
             print(f"phase2 cycle {i}: reinit_vocab_slice "
-                  f"{c['reinit_vocab_slice']:.3f} s, checkout back "
+                  f"{c['reinit_vocab_slice']:.3f} s (encode_dev "
+                  f"{c['encode_dev'] * 1e3:.3f} ms), checkout back "
                   f"{c['checkout_back']:.3f} s, checkout forward "
                   f"{c['checkout_forward']:.3f} s; at or over 1 s: {over}",
                   flush=True)

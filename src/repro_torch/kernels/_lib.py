@@ -41,8 +41,9 @@ _SIGNATURES: Dict[str, Tuple[str, List]] = {
     "kishu_delta_pack_scan": ("delta_pack",
                               [_P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P]),
     "kishu_delta_pack_gather": ("delta_pack", [_P, _LL, _LL, _I, _P, _P, _P]),
-    "kishu_codec_classify": ("delta_codec", [_P, _LL, _I, _P, _P, _P, _P]),
-    "kishu_codec_emit": ("delta_codec", [_P, _LL, _I, _P, _P, _P, _P]),
+    # rows, n_groups, gw, masks, count, planes, status, status_words
+    "kishu_codec_encode": ("delta_codec",
+                           [_P, _LL, _I, _P, _P, _P, _P, _LL, _P]),
     "kishu_patch_scatter": ("patch_scatter",
                             [_P, _LL, _LL, _I, _P, _LL, _P, _P]),
     "kishu_block_diff": ("block_diff", [_P, _P, _LL, _LL, _I, _P, _P]),

@@ -12,7 +12,8 @@ bounded jit shapes, and nothing here is compiled per shape.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import threading
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +21,15 @@ import torch
 from repro_torch.core.hashing import MASK32
 from repro_torch.kernels import _lib
 from repro_torch.kernels.delta_codec import host
+
+
+# groups one CTA of the kernel encodes (kTileGroups in csrc/delta_codec.cu);
+# the kernel's look-back needs one status word a tile, plus its ticket
+TILE_GROUPS = 8
+# (card, stream) -> the kernel's scratch: zeroed once, then left to the
+# kernel, which needs the calls that share it to run one after another
+_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+_scratch_lock = threading.Lock()
 
 
 def group_words_for(width: int) -> int:
@@ -65,11 +75,31 @@ def codec_encode_plain(rows: torch.Tensor, gw: int
     return torch.stack([smask, omask], dim=1), n_stored, stored
 
 
+def _scratch_for(dev: torch.device, stream: int, words: int
+                 ) -> torch.Tensor:
+    """The kernel's scratch for calls on ``stream``: at least ``words``
+    int64 words, zeroed when allocated (on that stream)."""
+    with _scratch_lock:
+        buf = _scratch.get((dev.index, stream))
+        if buf is None or buf.numel() < words:
+            buf = torch.zeros((host.pow2ceil(words),), dtype=torch.int64,
+                              device=dev)
+            _scratch[(dev.index, stream)] = buf
+        return buf
+
+
 def codec_encode_cuda(rows: torch.Tensor, gw: int
                       ) -> Tuple[torch.Tensor, int, torch.Tensor]:
     """Launch the kernel on contiguous CUDA int32 ``rows`` [R, W] (uint32
-    bits).  Returns (masks int32 [ng, 2], n_stored, planes int32
-    [n_stored, gw//32]), bit patterns of the plain version's values."""
+    bits).  Returns (masks int32 [ng, 2] on the host, n_stored, planes int32
+    [n_stored, gw//32] on the card), bit patterns of the plain version's
+    values.
+
+    One launch, with nothing read back before it ends: ``planes`` is sized
+    at the worst case, every plane of every group (the rows' own bytes), as
+    the Pallas kernel sizes it; then one synchronising copy brings the
+    masks and the count to the host together, and ``planes`` is cut to the
+    count."""
     if rows.dtype != torch.int32 or rows.dim() != 2 \
             or not rows.is_contiguous():
         raise ValueError("codec rows must be contiguous int32 [R, W]")
@@ -78,24 +108,22 @@ def codec_encode_cuda(rows: torch.Tensor, gw: int
             or w % gw:
         raise ValueError(f"codec: row width {w} / group {gw} not eligible")
     ng = r * (w // gw)
+    if not 0 < ng * 32 < 1 << 31:
+        raise ValueError(f"codec: {ng} groups outside the kernel's range")
     dev = rows.device
-    masks = torch.empty((ng, 2), dtype=torch.int32, device=dev)
-    offsets = torch.empty((ng,), dtype=torch.int32, device=dev)
-    total = torch.empty((1,), dtype=torch.int32, device=dev)
+    # the masks and the count share one buffer, so one copy reads both back
+    out = torch.empty((2 * ng + 1,), dtype=torch.int32, device=dev)
+    planes = torch.empty((ng * 32, gw // 32), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = _lib.stream_of(rows)
-        _lib.call("kishu_codec_classify", rows.data_ptr(), ng, gw,
-                  masks.data_ptr(), offsets.data_ptr(), total.data_ptr(),
-                  stream)
-        n_stored = int(total.item())
-        planes = torch.empty((n_stored, gw // 32), dtype=torch.int32,
-                             device=dev)
-        if n_stored:
-            _lib.call("kishu_codec_emit", rows.data_ptr(), ng, gw,
-                      masks.data_ptr(), offsets.data_ptr(), planes.data_ptr(),
-                      stream)
-    _lib.note_launch("delta_codec")
-    return masks, n_stored, planes
+        status = _scratch_for(dev, stream, -(-ng // TILE_GROUPS) + 1)
+        _lib.call("kishu_codec_encode", rows.data_ptr(), ng, gw,
+                  out.data_ptr(), out[2 * ng:].data_ptr(), planes.data_ptr(),
+                  status.data_ptr(), status.numel(), stream)
+        _lib.note_launch("delta_codec")
+        got = out.cpu()
+    n_stored = int(got[2 * ng])
+    return got[:2 * ng].view(ng, 2), n_stored, planes[:n_stored]
 
 
 def encode_rows(rows: torch.Tensor) -> Tuple[np.ndarray, torch.Tensor, int]:
@@ -110,7 +138,7 @@ def encode_rows(rows: torch.Tensor) -> Tuple[np.ndarray, torch.Tensor, int]:
         raise ValueError(f"row width {w} not codec-eligible")
     if rows.is_cuda:
         masks, _, planes = codec_encode_cuda(rows, gw)
-        return masks.cpu().numpy().view(np.uint32), planes, gw
+        return masks.numpy().view(np.uint32), planes, gw
     if rows.device.type != "cpu":
         raise ValueError(f"encode_rows: unsupported device {rows.device}")
     masks, _, planes = codec_encode_plain(u32_values(rows), gw)

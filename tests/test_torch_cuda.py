@@ -71,23 +71,173 @@ def test_delta_pack_kernel_matches_plain(dev, dtype, n, cb):
     assert torch.equal(buf, i32_bits(pbuf))
 
 
-@pytest.mark.parametrize("rows,w", [(1, 32), (3, 1024), (5, 4096),
-                                    (2, 262144)])
-def test_codec_kernel_matches_plain(dev, rows, w):
+def _codec_case(name):
+    """(uint32 values as int64 [R, W], gw) for one case of the codec's
+    card matrix."""
+    g = torch.Generator(device="cpu").manual_seed(len(name))
+    full = 0xFFFFFFFF
+
+    def mixed(r, w):
+        x = torch.randint(0, 1 << 10, (r, w), generator=g, dtype=torch.int64)
+        x[:, : w // 3] = 0
+        x[0, w // 2:] = full
+        return x
+
+    if name.startswith("gw"):                 # gw 32, 64, 256: 5 groups
+        gw = int(name[2:])
+        return (mixed(5, gw) if gw < 1024 else mixed(3, 4096)), gw
+    if name == "ragged_tile":                 # 13 groups: no multiple of 8
+        return mixed(13, 64), 64
+    if name == "many_tiles":                  # 2**17 + 5 groups of 32 words
+        return mixed(1, ((1 << 17) + 5) * 32), 32
+    if name == "all_zero":
+        return torch.zeros((3, 4096), dtype=torch.int64), 1024
+    if name == "all_ones":
+        return torch.full((3, 4096), full, dtype=torch.int64), 1024
+    if name == "all_stored":                  # random words: every plane
+        return torch.randint(0, 1 << 32, (4, 4096), generator=g,
+                             dtype=torch.int64), 1024
+    # Phase 1's rows: 1 MiB rows of AdamW moments, zeroed, half zeroed, kept
+    m = torch.empty((3, 1 << 18)).normal_(0, 1e-3, generator=g)
+    m[0] = 0
+    m[1, : 1 << 17] = 0
+    return m.view(torch.int32).to(torch.int64) & full, 1024
+
+
+CODEC_CASES = ["gw32", "gw64", "gw256", "gw1024", "ragged_tile",
+               "many_tiles", "all_zero", "all_ones", "all_stored",
+               "zeroed_moments"]
+
+
+@pytest.mark.parametrize("case", CODEC_CASES)
+def test_codec_kernel_matches_plain(dev, case):
     from repro_torch.kernels.delta_codec.ops import (codec_encode_cuda,
                                                      codec_encode_plain,
                                                      i32_bits)
-    g = torch.Generator(device="cpu").manual_seed(rows * w)
-    x = torch.randint(0, 1 << 10, (rows, w), generator=g, dtype=torch.int64)
-    x[:, : w // 3] = 0
-    x[0, w // 2:] = 0xFFFFFFFF
+    x, gw = _codec_case(case)
     x = x.to(dev)
-    gw = min(1024, w)
+    ng = x.numel() // gw
     m, n, p = codec_encode_cuda(i32_bits(x), gw)
     pm, pn, pp = codec_encode_plain(x, gw)
     assert n == pn
-    assert torch.equal(m.to(torch.int64) & 0xFFFFFFFF, pm)
+    assert m.device.type == "cpu" and m.shape == (ng, 2)
+    assert torch.equal(m.to(torch.int64) & 0xFFFFFFFF, pm.cpu())
+    assert p.shape == (n, gw // 32)
     assert torch.equal(p, i32_bits(pp))
+    if case in ("all_zero", "all_ones"):
+        assert n == 0
+    if case == "all_stored":
+        assert n == ng * 32                   # the worst-case buffer, full
+
+
+def _codec_raw_call(rows, gw, out, planes, status):
+    from repro_torch.kernels import _lib
+    ng = rows.numel() // gw
+    _lib.call("kishu_codec_encode", rows.data_ptr(), ng, gw, out.data_ptr(),
+              out[2 * ng:].data_ptr(), planes.data_ptr(), status.data_ptr(),
+              status.numel(), _lib.stream_of(rows))
+
+
+def _codec_buffers(rows, gw):
+    from repro_torch.kernels.delta_codec.ops import TILE_GROUPS
+    ng = rows.numel() // gw
+    return (torch.empty((2 * ng + 1,), dtype=torch.int32, device=rows.device),
+            torch.empty((ng * 32, gw // 32), dtype=torch.int32,
+                        device=rows.device),
+            torch.zeros((-(-ng // TILE_GROUPS) + 1,), dtype=torch.int64,
+                        device=rows.device))
+
+
+@pytest.mark.parametrize("case", ["zeroed_moments", "all_stored",
+                                  "many_tiles"])
+def test_codec_kernel_is_deterministic(dev, case):
+    """50 calls on one stream, and 50 replays of a CUDA graph of the C
+    entry (its memset and its launch), give the same masks, count and
+    planes: the look-back order never shows in the output."""
+    from repro_torch.kernels.delta_codec.ops import codec_encode_cuda, i32_bits
+    x, gw = _codec_case(case)
+    rows = i32_bits(x.to(dev))
+    m0, n0, p0 = codec_encode_cuda(rows, gw)
+    for _ in range(50):
+        m, n, p = codec_encode_cuda(rows, gw)
+        assert n == n0 and torch.equal(m, m0) and torch.equal(p, p0)
+    out, planes, status = _codec_buffers(rows, gw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _codec_raw_call(rows, gw, out, planes, status)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _codec_raw_call(rows, gw, out, planes, status)
+    ng = m0.shape[0]
+    for _ in range(50):
+        out.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        host = out.cpu()
+        assert int(host[2 * ng]) == n0
+        assert torch.equal(host[:2 * ng].view(ng, 2), m0)
+        assert torch.equal(planes[:n0], p0)
+
+
+def test_codec_launch_failure_raises(dev, monkeypatch):
+    """A group size the kernel does not take, a C entry that refuses its
+    arguments and a failing launch all raise; encode_rows never falls back
+    to the plain version for a CUDA tensor."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.delta_codec import ops
+    x, gw = _codec_case("gw1024")
+    rows = ops.i32_bits(x.to(dev))
+    for bad in (48, 2048, 16):
+        with pytest.raises(ValueError):
+            ops.codec_encode_cuda(rows, bad)
+    out, planes, status = _codec_buffers(rows, gw)
+    roomy = torch.empty((1 << 10,), dtype=torch.int64, device=dev)
+    with pytest.raises(RuntimeError, match="kishu_codec_encode"):
+        _codec_raw_call(rows, 48, out, planes, roomy)        # refused gw
+    with pytest.raises(RuntimeError, match="kishu_codec_encode"):
+        _codec_raw_call(rows, gw, out, planes, status[:1])   # no room
+    real = _lib.call
+
+    def failing(fn, *args):
+        if fn == "kishu_codec_encode":
+            raise RuntimeError(f"{fn}: injected CUDA error")
+        return real(fn, *args)
+
+    def fallback(*args):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(_lib, "call", failing)
+    monkeypatch.setattr(ops, "codec_encode_plain", fallback)
+    before = _lib.launches()["delta_codec"]
+    with pytest.raises(RuntimeError, match="injected CUDA error"):
+        ops.encode_rows(rows)
+    assert _lib.launches()["delta_codec"] == before
+
+
+@pytest.mark.parametrize("cb", [128, 4096, 1 << 20])
+def test_read_chunks_encoded_card_equals_cpu(dev, cb):
+    """The same tensor, packed against the same hashes on the card and on
+    the CPU, yields the same (index, logical, frame) triples: the kernel's
+    stream builds the same frames as the plain version's."""
+    import numpy as np
+    from repro_torch.core.hashing import chunk_hashes_np
+    from repro_torch.kernels.delta_pack.ops import delta_pack
+    rng = np.random.default_rng(cb)
+    a0 = rng.integers(0, 1 << 10, 5 * cb // 4 - 3).astype(np.int32)
+    a1 = a0.copy()
+    a1[:: max(1, cb // 8)] += 1                 # every chunk dirty
+    a1[-1] += 1
+    prev = chunk_hashes_np(a0.view(np.uint8), cb)
+    got = {}
+    for where in ("cpu", dev):
+        pack = delta_pack(torch.from_numpy(a1).to(where), prev, cb)
+        got[str(where)] = list(pack.read_chunks_encoded())
+        assert pack.codec_chunks_encoded > 0
+    assert got["cpu"] == got[str(dev)]
+    assert [ci for ci, _, _ in got["cpu"]] == list(range(5))
 
 
 @pytest.mark.parametrize("dtype,n", CASES)
