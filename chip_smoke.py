@@ -48,6 +48,16 @@ Phase 4  the trainer path: ``ManagedTrainingSession`` trains SmolLM-360M at
          ``delta.exact_dirty_indices`` (the block_diff kernel).  Its
          launch counts are read from this phase, from attach to the resume's
          verification.
+Phase 4b the checkout planner on Cell B: three trainer sessions over Phase
+         4's store, with ``KISHU_PLANNER`` fetch, replay and auto in turn,
+         each resume at the head and check out the first train commit; each
+         checkout must equal Phase 4's snapshot of it under block_diff, its
+         plan must equal its execution, and under replay the train phase
+         must really be replayed (``covs_recomputed`` equal to
+         ``covs_planned_replay``, above 0).  Each prints ``plan_est_s``
+         beside the wall time and the head and tail of its plan's lines.
+         Then the port's kishu CLI runs ``log``, ``plan``, ``verify``,
+         ``fsck`` and ``topology`` in process on Phase 4's store.
 Phase 5  the serving path (examples/serve_batched.py on the card):
          SmolLM-360M at full width and depth (bf16, random from a seed);
          ``make_prefill_step`` on 8 x 512 prompt tokens (the flash kernel,
@@ -62,10 +72,23 @@ Phase 5  the serving path (examples/serve_batched.py on the card):
          from the same checkout, must equal the graph's bit for bit.
          flash_attention's launch count is read from this phase, and all
          32 prefill launches must take the tc route.
+Phase 6  Cell D, the storage fabric: Cell A's state cut to its first 8
+         layers (1.51 GB) on ``fabric://rep(shard(dir://s0,dir://s1),
+         dir://r)`` with 1 MiB chunks and the planner on auto: attach,
+         finetune_top on layers 4-7, reinit_vocab_slice on rows
+         32768-37682, checkout back and forward; then, with the chunk
+         cache off, the replica ``r`` loses every chunk file before a
+         checkout back, ``scrub --repair`` heals it, the shard ``s1`` loses
+         every chunk file before a checkout forward (read-repaired from
+         ``r``), a second ``scrub --repair`` heals the rest and a last
+         ``scrub`` must find no problem.  Every checkout must be exact
+         under block_diff; launch counts are read from this phase.  The
+         CLI verbs of Phase 4b then run on this fabric.
 
 Output: per-phase lines, one JSON line of kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  The full record goes to
-``build/chip_smoke.json``.  Without a card, or outside the
+``build/chip_smoke.json`` (Phase 4b's plan estimates beside the wall
+times, and every plan's lines).  Without a card, or outside the
 repository, it exits non-zero before printing any result.
 """
 from __future__ import annotations
@@ -141,10 +164,10 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def param_shapes() -> dict:
+def param_shapes(n_layers: int = N_LAYERS) -> dict:
     q, kv = N_HEADS * HEAD_DIM, N_KV * HEAD_DIM
     shapes = {"embed": (VOCAB, D_MODEL), "final_norm": (D_MODEL,)}
-    for i in range(N_LAYERS):
+    for i in range(n_layers):
         p = f"layers/{i:02d}"
         shapes.update({
             f"{p}/attn_norm": (D_MODEL,), f"{p}/attn/q": (D_MODEL, q),
@@ -155,9 +178,9 @@ def param_shapes() -> dict:
     return shapes
 
 
-def top_names() -> list:
-    return [n for n in param_shapes()
-            if any(n.startswith(f"layers/{i:02d}/") for i in TOP_LAYERS)]
+def top_names(layers=TOP_LAYERS) -> list:
+    return [n for n in param_shapes(max(layers) + 1)
+            if any(n.startswith(f"layers/{i:02d}/") for i in layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -702,10 +725,10 @@ def phase1_flash(torch, dev) -> dict:
 # Phase 2: the main path
 # ---------------------------------------------------------------------------
 
-def make_state(torch, dev) -> dict:
+def make_state(torch, dev, n_layers: int = N_LAYERS) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     params, m, v = {}, {}, {}
-    for name, shape in param_shapes().items():
+    for name, shape in param_shapes(n_layers).items():
         if name.endswith("norm"):
             params[name] = torch.ones(shape, device=dev)
         else:
@@ -718,11 +741,12 @@ def make_state(torch, dev) -> dict:
     return {"params": params, "opt": {"m": m, "v": v}}
 
 
-def finetune_top(ns, step: int) -> None:
-    """One in-place AdamW-style step on layers 28-31 (params, m, v)."""
+def finetune_top(ns, step: int, layers=None) -> None:
+    """One in-place AdamW-style step on layers 28-31 (or ``layers``):
+    params, m, v."""
     import torch
     g = None
-    for name in top_names():
+    for name in top_names(TOP_LAYERS if layers is None else layers):
         p = ns[f"params/{name}"]
         if g is None:
             g = torch.Generator(device=p.device).manual_seed(1000 + step)
@@ -1102,6 +1126,8 @@ def phase4(torch, dev, workdir: Path) -> dict:
         check(docs[0].get("replay_safe") is True
               and docs[1].get("replay_safe") is True,
               f"replay_safe in the train commits' docs: {docs}")
+        # on the card exec_s ends after the device has finished the cell
+        rec["train_exec_s"] = [docs[0]["exec_s"], docs[1]["exec_s"]]
         rec["commits"] = [c0, c1, c2, c3, c4, c5]
     finally:
         sess.close()
@@ -1126,7 +1152,6 @@ def phase4(torch, dev, workdir: Path) -> dict:
         rec["launches"] = _lib.launches()
     finally:
         r.close()
-    del s1
 
     for key in ("attach", "train_1", "set_lr", "train_2", "evaluate",
                 "train_replay"):
@@ -1148,8 +1173,297 @@ def phase4(torch, dev, workdir: Path) -> dict:
           f"{rec['verify_set_lr_s']:.3f} s); eval loss {rec['eval_loss']}",
           flush=True)
     print(f"phase4 kernels: {json.dumps(rec['launches'])}", flush=True)
+    print(f"phase4 exec_s of the two train(2) commits (device time "
+          f"included): {rec['train_exec_s']}", flush=True)
     missing = [k for k in TRAINER_PATH_KERNELS if rec["launches"][k] <= 0]
     check(not missing, f"kernels never launched on the trainer path: "
+                       f"{missing}")
+    return rec, s1
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the checkout planner on Cell B (SmolLM-360M, full size)
+# ---------------------------------------------------------------------------
+
+PLAN_MODES = ("fetch", "replay", "auto")
+
+
+def plan_summary(lines: list) -> list:
+    """The head and the tail of ``format_plan``'s lines (the per-co-variable
+    rows go to the JSON record)."""
+    return lines[:2] + lines[-1:]
+
+
+def phase4b(torch, dev, workdir: Path, rec4: dict, snap1: dict) -> dict:
+    """For each planner mode, a trainer session over Phase 4's store (the
+    trainer reads $KISHU_PLANNER) resumes at the head and checks out the
+    first train commit; block_diff holds the result against Phase 4's
+    snapshot of that commit."""
+    from repro_torch.core.planner import format_plan
+    from repro_torch.kernels import _lib
+    from repro_torch.models.config import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import resume
+    from repro_torch.core import open_store
+
+    cfg = get_config("smollm-360m")
+    opt = AdamWConfig(lr=1e-3)
+    url = f"dir://{workdir}/train_cas"
+    kw = dict(global_batch=8, seq_len=128, chunk_bytes=CB)
+    c1, head = rec4["commits"][1], rec4["commits"][-1]
+    rec: dict = {"target": c1, "head": head}
+    prev = os.environ.get("KISHU_PLANNER")
+    _lib.reset_launches()
+    try:
+        for mode in PLAN_MODES:
+            os.environ["KISHU_PLANNER"] = mode
+            t0 = time.perf_counter()
+            r = resume(cfg, opt, open_store(url), **kw)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            try:
+                check(r.kishu.plan_mode == mode and r.kishu.head == head,
+                      f"{mode}: session at {r.kishu.head}, mode "
+                      f"{r.kishu.plan_mode}")
+                priced = r.kishu.plan(c1)
+                lines = format_plan(priced)
+                # `kishu plan` of the same checkout: no live namespace, so
+                # fetch against replay for every co-variable, no patch
+                code, cli_lines = kishu(["--store", url, "plan", c1,
+                                         "--from", head, "--mode", mode])
+                check(code == 0, f"{mode}: kishu plan exited {code}")
+                t0 = time.perf_counter()
+                st = r.checkout(c1)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                verify_s = verify_exact(torch, r.ns, snap1,
+                                        f"phase4b {mode} checkout")
+                n = priced.counts()
+                planned = {"fetch": st.covs_planned_fetch,
+                           "patch": st.covs_planned_patch,
+                           "replay": st.covs_planned_replay}
+                check(planned == n,
+                      f"{mode}: the plan {n} is not its execution {planned}")
+                if mode == "replay":
+                    check(0 < st.covs_recomputed == st.covs_planned_replay,
+                          f"replay: {st.covs_recomputed} recomputed of "
+                          f"{st.covs_planned_replay} planned")
+                if mode == "fetch":
+                    check(st.covs_recomputed == 0,
+                          f"fetch: {st.covs_recomputed} recomputed")
+                check(not r.kishu.restorer._memo,
+                      f"{mode}: the replay memo still holds tensors")
+                # back to the head (a checkout moves HEAD in the store, and
+                # the next mode starts there): the same state, verified too
+                t0 = time.perf_counter()
+                back = r.checkout(head)
+                torch.cuda.synchronize()
+                back_s = time.perf_counter() - t0
+                verify_exact(torch, r.ns, snap1, f"phase4b {mode} back")
+                rec[mode] = {
+                    "resume_s": resume_s, "wall_s": wall,
+                    "plan_est_s": st.plan_est_s,
+                    "est_fetch_s": priced.est_fetch_s,
+                    "est_replay_s": priced.est_replay_s,
+                    "latency_s": priced.latency_s,
+                    "bandwidth_Bps": priced.bandwidth_Bps,
+                    "covs_planned": planned,
+                    "covs_recomputed": st.covs_recomputed,
+                    "covs_loaded": st.covs_loaded,
+                    "covs_patched": st.covs_patched,
+                    "bytes_loaded": st.bytes_loaded,
+                    "bytes_cached": st.bytes_cached,
+                    "verify_s": verify_s, "plan_lines": lines,
+                    "cli_plan_lines": cli_lines,
+                    "back_s": back_s,
+                    "back_planned": {"fetch": back.covs_planned_fetch,
+                                     "patch": back.covs_planned_patch,
+                                     "replay": back.covs_planned_replay},
+                    "back_recomputed": back.covs_recomputed}
+            finally:
+                r.close()
+                del r
+                torch.cuda.empty_cache()
+            x = rec[mode]
+            print(f"phase4b {mode}: checkout {head} -> {c1} {wall:.3f} s "
+                  f"(plan_est_s {x['plan_est_s']:.3f}); planned "
+                  f"{x['covs_planned']}, covs_recomputed "
+                  f"{x['covs_recomputed']}, bytes_loaded "
+                  f"{x['bytes_loaded']}; block_diff exact "
+                  f"({verify_s:.3f} s); resume {resume_s:.3f} s; back to "
+                  f"the head {back_s:.3f} s, planned {x['back_planned']}, "
+                  f"exact", flush=True)
+            for line in plan_summary(lines):
+                print(f"phase4b {mode} plan: {line}", flush=True)
+            for line in plan_summary(cli_lines):
+                print(f"phase4b {mode} kishu plan: {line}", flush=True)
+    finally:
+        if prev is None:
+            os.environ.pop("KISHU_PLANNER", None)
+        else:
+            os.environ["KISHU_PLANNER"] = prev
+    rec["launches"] = _lib.launches()
+    print(f"phase4b kernels: {json.dumps(rec['launches'])}", flush=True)
+    check(rec["launches"]["block_diff"] > 0,
+          "phase4b: no verification went through block_diff")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# The kishu CLI on the card's stores, in process
+# ---------------------------------------------------------------------------
+
+def kishu(args: list):
+    """(exit code, stdout lines) of the port's kishu CLI, run in process."""
+    import contextlib
+    import io
+    from repro_torch.launch.kishu_cli import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli(args)
+    return code, buf.getvalue().splitlines()
+
+
+def cli_verbs(url: str, target: str, label: str) -> dict:
+    """``log``, ``plan``, ``verify``, ``fsck`` and ``topology`` through the
+    port's CLI entry point, each of which must exit 0."""
+    rec: dict = {}
+    for verb in (["log"], ["plan", target], ["verify"], ["fsck"],
+                 ["topology"]):
+        t0 = time.perf_counter()
+        code, out = kishu(["--store", url] + verb)
+        rec[verb[0]] = {"exit": code, "s": time.perf_counter() - t0,
+                        "lines": out}
+        check(code == 0, f"{label}: kishu {' '.join(verb)} exited {code}: "
+                         f"{out[-3:]}")
+        print(f"{label} kishu {verb[0]}: exit 0 in "
+              f"{rec[verb[0]]['s']:.3f} s; {out[-1] if out else ''}",
+              flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: Cell D, the storage fabric
+# ---------------------------------------------------------------------------
+
+FABRIC_LAYERS = 8                    # Cell A's state cut to its first 8
+FABRIC_TOP = range(4, 8)             # finetune_top: the last four of them
+FABRIC_PATH_KERNELS = ("chunk_hash", "delta_pack", "delta_codec",
+                       "patch_scatter", "block_diff")
+
+
+def wipe_chunks(root: Path) -> None:
+    shutil.rmtree(root / "chunks")
+    (root / "chunks").mkdir()
+
+
+def phase6(torch, dev, workdir: Path) -> dict:
+    """Cell A's cells on ``fabric://rep(shard(s0,s1),r)`` with the planner
+    on auto; a replica and then a shard lose every chunk file, and each
+    checkout after the loss must still be exact (block_diff)."""
+    from repro_torch.core import KishuSession, open_store, scrub
+    from repro_torch.kernels import _lib
+
+    d = workdir
+    url = (f"fabric://rep(shard(dir://{d}/s0,dir://{d}/s1),"
+           f"dir://{d}/r)")
+    rec: dict = {"store": url, "layers": FABRIC_LAYERS}
+    state = make_state(torch, dev, FABRIC_LAYERS)
+    rec["state_bytes"] = sum(t.numel() * t.element_size()
+                             for grp in (state["params"], state["opt"]["m"],
+                                         state["opt"]["v"])
+                             for t in grp.values())
+    sess = KishuSession(open_store(url), chunk_bytes=CB, plan_mode="auto")
+    check(sess.device.type == "cuda" and sess.plan_mode == "auto",
+          f"fabric session on {sess.device}, {sess.plan_mode}")
+    sess.register("finetune_top", finetune_top)
+    sess.register("reinit_vocab_slice", reinit_vocab_slice)
+
+    def op(label: str, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rec[f"{label}_s"] = time.perf_counter() - t0
+        return out
+
+    def commit(label: str, fn) -> str:
+        cid = op(label, fn)
+        w = sess.last_run.write
+        rec[label] = {"covs_updated": sess.last_run.covs_updated,
+                      "bytes_written": w.bytes_written,
+                      "bytes_dev2host": w.bytes_dev2host,
+                      "chunks_written": w.chunks_written,
+                      "chunks_encoded": w.chunks_encoded}
+        print(f"phase6 {label}: {rec[f'{label}_s']:.3f} s; {rec[label]}",
+              flush=True)
+        return cid
+
+    def checkout(label: str, target: str, snap: dict) -> None:
+        st = op(label, lambda: sess.checkout(target))
+        rec[f"verify_{label}_s"] = verify_exact(torch, sess.ns, snap, label)
+        rec[label] = {"plan_est_s": st.plan_est_s,
+                      "covs_planned": {"fetch": st.covs_planned_fetch,
+                                       "patch": st.covs_planned_patch,
+                                       "replay": st.covs_planned_replay},
+                      "covs_loaded": st.covs_loaded,
+                      "covs_patched": st.covs_patched,
+                      "covs_recomputed": st.covs_recomputed,
+                      "bytes_loaded": st.bytes_loaded,
+                      "bytes_cached": st.bytes_cached}
+        print(f"phase6 {label}: {rec[f'{label}_s']:.3f} s, exact "
+              f"(block_diff, {rec[f'verify_{label}_s']:.3f} s); "
+              f"{rec[label]}", flush=True)
+
+    def scrub_op(label: str, repair: bool):
+        r = op(label, lambda: scrub(open_store(url), repair=repair))
+        rec[label] = {"problems": r.problems, "repaired": r.repaired,
+                      "remaining": r.remaining,
+                      "replica_missing": r.replica_missing,
+                      "misplaced": r.misplaced,
+                      "chunks_checked": r.chunks_checked}
+        print(f"phase6 {label}: {rec[f'{label}_s']:.3f} s; {rec[label]}",
+              flush=True)
+        return r
+
+    _lib.reset_launches()
+    try:
+        c_attach = commit("attach", lambda: sess.init_state(state))
+        del state
+        snap0 = tensor_snapshot(torch, sess.ns)
+        commit("finetune_top", lambda: sess.run(
+            "finetune_top", step=1, layers=list(FABRIC_TOP)))
+        lo, hi = VOCAB_ROWS
+        c_vocab = commit("reinit_vocab_slice", lambda: sess.run(
+            "reinit_vocab_slice", lo=lo, hi=hi))
+        snap2 = tensor_snapshot(torch, sess.ns)
+        checkout("checkout_back", c_attach, snap0)
+        checkout("checkout_forward", c_vocab, snap2)
+        # the chunk cache off: every read below goes to the fabric
+        sess.chunk_cache.clear()
+        sess.chunk_cache.max_bytes = 0
+        wipe_chunks(d / "r")
+        checkout("checkout_back_r_wiped", c_attach, snap0)
+        r = scrub_op("scrub_repair", True)
+        check(r.replica_missing > 0 and r.remaining == 0,
+              f"scrub --repair after the replica wipe: {rec['scrub_repair']}")
+        wipe_chunks(d / "s1")
+        checkout("checkout_forward_s1_wiped", c_vocab, snap2)
+        r = scrub_op("scrub_repair_2", True)
+        check(r.remaining == 0, f"second scrub --repair: "
+                                f"{rec['scrub_repair_2']}")
+        r = scrub_op("scrub_final", False)
+        check(r.problems == 0, f"the final scrub is not clean: "
+                               f"{rec['scrub_final']}")
+        rec["commits"] = [c_attach, c_vocab]
+        rec["launches"] = _lib.launches()
+    finally:
+        sess.close()
+    print(f"phase6 state: {rec['state_bytes']} bytes ({FABRIC_LAYERS} of "
+          f"{N_LAYERS} layers); kernels: {json.dumps(rec['launches'])}",
+          flush=True)
+    missing = [k for k in FABRIC_PATH_KERNELS if rec["launches"][k] <= 0]
+    check(not missing, f"kernels never launched on the fabric path: "
                        f"{missing}")
     return rec
 
@@ -1509,8 +1823,17 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="kishu_smoke_train_"))
     try:
         t0 = time.perf_counter()
-        record["phase4"] = phase4(torch, dev, workdir)
+        record["phase4"], snap1 = phase4(torch, dev, workdir)
         record["phase4_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        record["phase4b"] = phase4b(torch, dev, workdir, record["phase4"],
+                                    snap1)
+        record["phase4b_s"] = time.perf_counter() - t0
+        del snap1
+        torch.cuda.empty_cache()
+        c = record["phase4"]["commits"]
+        record["cli_phase4"] = cli_verbs(f"dir://{workdir}/train_cas",
+                                         c[1], "cli phase4")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1519,6 +1842,17 @@ def main() -> int:
         t0 = time.perf_counter()
         record["phase5"] = phase5(torch, dev, workdir)
         record["phase5_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    workdir = Path(tempfile.mkdtemp(prefix="kishu_smoke_fabric_"))
+    try:
+        t0 = time.perf_counter()
+        record["phase6"] = phase6(torch, dev, workdir)
+        record["phase6_s"] = time.perf_counter() - t0
+        record["cli_phase6"] = cli_verbs(record["phase6"]["store"],
+                                         record["phase6"]["commits"][0],
+                                         "cli phase6")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # launches: each kernel's count on the path that first needed it —

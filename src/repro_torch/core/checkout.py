@@ -15,6 +15,7 @@ round-trips.
 """
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import nullcontext
 from dataclasses import dataclass
@@ -53,8 +54,27 @@ class CheckoutStats:
     covs_scattered: int = 0         # device covs patched in one fused
                                     # scatter pass (kernels/patch_scatter)
     kernel_fallbacks: int = 0       # device-kernel → host degradations
+    covs_planned_fetch: int = 0     # planner lane sizes (0 when plan_mode
+    covs_planned_replay: int = 0    #  is off — the fixed ladder ran)
+    covs_planned_patch: int = 0
+    plan_est_s: float = 0.0         # planner's cost estimate for the
+                                    # checkout (compare against wall_s)
     wall_s: float = 0.0
     diff_s: float = 0.0
+
+
+# CheckoutStats fields a concurrent fetch lane accumulates into its own
+# instance and merges back after joining (plain += on a shared dataclass
+# would race with the replay lane)
+_ADDITIVE_STATS = (
+    "covs_loaded", "covs_patched", "covs_deleted", "covs_recomputed",
+    "bytes_loaded", "bytes_cached", "bytes_logical", "chunks_patched",
+    "chunks_inplace", "bytes_host2dev", "covs_scattered", "kernel_fallbacks")
+
+
+def _merge_stats(dst: CheckoutStats, src: CheckoutStats) -> None:
+    for name in _ADDITIVE_STATS:
+        setattr(dst, name, getattr(dst, name) + getattr(src, name))
 
 
 @dataclass
@@ -158,6 +178,9 @@ class StateLoader:
         self.probe_threshold_s = parallel.PARALLEL_LATENCY_THRESHOLD_S
         # observability handle (set by the session owning this loader)
         self.obs = None
+        # cost-based checkout planner (set by the session when plan_mode is
+        # not off); None keeps the fixed patch->fetch->fallback ladder
+        self.planner = None
 
     def _span(self, name: str, **args):
         return self.obs.span(name, **args) if self.obs is not None \
@@ -532,6 +555,66 @@ class StateLoader:
             stats.bytes_logical += base_info["nbytes"]
         return values
 
+    def _materialize_mixed(self, full_items: List[Tuple[CovKey, str]],
+                           replay_items: List[Tuple[CovKey, str]],
+                           stats: Optional[CheckoutStats]
+                           ) -> Dict[CovKey, Dict[str, Any]]:
+        """Execute the planner's lanes: fetch slabs stream on a helper
+        thread while replays run on the calling thread (commands may touch
+        thread-affine state, and the restorer's own dependency loads nest
+        safely through the re-entrant parallel engine).  A replay the
+        planner mispredicted demotes to the fetch path after the lanes
+        join — planner-on never changes what a checkout can restore.
+
+        Stream order on a card: a full load copies each tensor to the card
+        asynchronously on the current stream of the thread that
+        materializes it.  The helper thread therefore enters the calling
+        thread's current stream, so both lanes issue on one stream and
+        the swap (and every later use of a loaded tensor on that stream)
+        runs after every copy of either lane."""
+        if not replay_items:
+            return self.load_covs(full_items, stats)
+        box: Dict[str, Any] = {}
+        fstats = CheckoutStats()
+        th = None
+        if full_items:
+            stream = torch.cuda.current_stream(self.device) \
+                if self.device is not None and self.device.type == "cuda" \
+                else None
+
+            def _fetch_lane():
+                try:
+                    with torch.cuda.stream(stream) if stream is not None \
+                            else nullcontext():
+                        box["out"] = self.load_covs(full_items, fstats)
+                except BaseException as e:  # noqa: BLE001 — raised on join
+                    box["err"] = e
+            th = threading.Thread(target=_fetch_lane,
+                                  name="kishu-fetch-lane", daemon=True)
+            th.start()
+        loaded: Dict[CovKey, Dict[str, Any]] = {}
+        demoted: List[Tuple[CovKey, str]] = []
+        for key, version in replay_items:
+            try:
+                if self.fallback is None:
+                    raise ChunkMissingError(
+                        f"co-variable {key} @ {version}: replay planned "
+                        f"but no fallback wired")
+                loaded[key] = self.fallback(key, version, stats)
+            except Exception as e:  # noqa: BLE001 — mispredicted replay
+                delta_mod.note_kernel_fallback("plan_replay", e)
+                demoted.append((key, version))
+        if th is not None:
+            th.join()
+        if stats is not None:
+            _merge_stats(stats, fstats)
+        if "err" in box:
+            raise box["err"]
+        loaded.update(box.get("out", {}))
+        if demoted:
+            loaded.update(self.load_covs(demoted, stats))
+        return loaded
+
     def checkout(self, tracked_ns, records: Dict[str, LeafRecord],
                  target: str) -> Tuple[Dict[str, LeafRecord], CheckoutStats]:
         """Execute an incremental checkout; mutates the namespace in place.
@@ -542,24 +625,39 @@ class StateLoader:
         fb0 = delta_mod.kernel_fallbacks()
         cur = self.graph.head
         td = time.perf_counter()
+        replay_items: List[Tuple[CovKey, str]] = []
         # 1. plan: graph diff + chunk-level refinement — diverged covs whose
         #    live buffer matches the target structurally only fetch their
-        #    differing chunks
+        #    differing chunks; an engaged planner then prices fetch vs
+        #    replay vs patch per co-variable and splits the work into lanes
         with self._span("plan"):
             plan: CheckoutPlan = self.graph.diff(cur, target)
             stats.diff_s = time.perf_counter() - td
             stats.covs_identical = len(plan.identical)
             patches, full_items = self.plan_patches(plan, records,
                                                     tracked_ns.base)
+            if self.planner is not None and self.planner.engaged:
+                priced = self.planner.price(cur, target, plan, patches,
+                                            full_items)
+                patches, full_items, replay_items = self.planner.partition(
+                    priced, patches, full_items)
+                plan.patches = patches
+                stats.covs_planned_patch = len(patches)
+                stats.covs_planned_fetch = len(full_items)
+                stats.covs_planned_replay = len(replay_items)
+                stats.plan_est_s = priced.est_total_s
         with self._span("fetch"):
             patch_data, patches, demoted = self._fetch_patch_chunks(patches,
                                                                     stats)
         full_items = sorted(full_items + demoted)
 
         # 2. load fully-diverged co-variables (before mutating anything),
-        #    chunk I/O planned up front and prefetched in parallel
-        with self._span("materialize", covs=len(full_items)):
-            loaded = self.load_covs(full_items, stats)
+        #    chunk I/O planned up front and prefetched in parallel; with a
+        #    planner mixed plan the fetch slabs stream on a helper thread
+        #    while replays run here
+        with self._span("materialize",
+                        covs=len(full_items) + len(replay_items)):
+            loaded = self._materialize_mixed(full_items, replay_items, stats)
 
         # 3. apply patches (all data is in hand); a numpy patch that fails
         #    falls back to the full serial load of just that co-variable.

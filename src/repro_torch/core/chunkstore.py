@@ -1244,8 +1244,8 @@ class FaultInjectingStore(ChunkStore):
 
 def open_store(uri: str, codec=None, tenant: Optional[str] = None) -> ChunkStore:
     """"memory://", "dir:///path", "sqlite:///path.db", a bare path, or a
-    "fabric://TOPOLOGY" composition — the latter raises
-    ``NotImplementedError`` until the fabric module is ported.
+    "fabric://TOPOLOGY" composition (fabric.py) — e.g.
+    ``fabric://shard(dir:///s0,dir:///s1)`` or ``fabric://rep(a,b)``.
 
     A ``?codec=NAME`` suffix (or the ``codec`` argument) wraps the store in
     :class:`CompressedStore` — e.g. ``sqlite:///ckpt.db?codec=auto`` or
@@ -1266,10 +1266,10 @@ def open_store(uri: str, codec=None, tenant: Optional[str] = None) -> ChunkStore
             elif part:
                 raise ValueError(f"unknown store URI option {part!r}")
     if uri.startswith("fabric://"):
-        raise NotImplementedError(
-            "fabric:// stores are not ported to repro_torch yet")
-    if uri == "memory://" or uri == ":memory:":
-        store: ChunkStore = MemoryStore()
+        from repro_torch.core.fabric import parse_topology
+        store: ChunkStore = parse_topology(uri[len("fabric://"):])
+    elif uri == "memory://" or uri == ":memory:":
+        store = MemoryStore()
     elif uri.startswith("sqlite://"):
         store = SQLiteStore(uri[len("sqlite://"):])
     elif uri.startswith("dir://"):

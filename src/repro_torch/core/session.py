@@ -17,12 +17,12 @@ with recursive fallback recomputation for missing data.
 The session runs on a CUDA card unless the caller passes ``device="cpu"``;
 with no card and no such request it raises — it never moves to the CPU on
 its own.  Tensors restored by a full load land on the session's device.
-The cost-based checkout planner is not ported yet: ``plan_mode`` other than
-``"off"`` raises.
+On a card, a cell's ``exec_s`` ends after the device has finished the
+cell's work, so the checkout planner prices a replay by the cell's device
+time as well as its host time.
 """
 from __future__ import annotations
 
-import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Union
@@ -56,19 +56,6 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def resolve_plan_mode(mode: Optional[str] = None) -> str:
-    """Checkout planner mode: explicit arg > $KISHU_PLANNER > "off".  Only
-    "off" is available until the planner is ported."""
-    if mode is None:
-        mode = os.environ.get("KISHU_PLANNER", "")
-    mode = str(mode).strip().lower()
-    if mode not in ("", "off", "0", "none", "false"):
-        raise NotImplementedError(
-            f"plan_mode={mode!r}: the checkout planner is not ported to "
-            f"repro_torch yet (only 'off')")
-    return "off"
 
 
 class QuotaExceededError(RuntimeError):
@@ -137,14 +124,14 @@ class KishuSession:
         #   chunk_cache  — share one cache across sessions (kishud)
         #   trace        — pipeline span tracing (DESIGN.md §16); None
         #                  defers to $KISHU_TRACE, default off
-        #   plan_mode    — cost-based checkout planner (DESIGN.md §18);
-        #                  only "off" until the planner is ported
+        #   plan_mode    — cost-based checkout planner (DESIGN.md §18):
+        #                  off/auto/fetch/replay; None defers to
+        #                  $KISHU_PLANNER, default off
         #   device       — where device-array leaves live and restore:
         #                  "cuda" (default) or an explicit "cpu"
         from repro_torch.obs.instrument import InstrumentedStore
 
         self.device = resolve_device(device)
-        self.plan_mode = resolve_plan_mode(plan_mode)
 
         if tenant is not None and not isinstance(store, NamespacedStore):
             store = NamespacedStore(store, tenant)
@@ -178,7 +165,10 @@ class KishuSession:
         # one chunk cache shared by writer and loader: checking out a
         # just-committed state is served from memory, not the backend
         # (cache_bytes=0 disables; default $KISHU_CACHE_BYTES or 64 MiB)
-        self.chunk_cache = chunk_cache or ChunkCache(cache_bytes)
+        # (an empty cache is falsy: test for None, or a shared cache that
+        # holds nothing yet would be replaced by a private one)
+        self.chunk_cache = chunk_cache if chunk_cache is not None \
+            else ChunkCache(cache_bytes)
         self.writer = CheckpointWriter(store, chunk_bytes=chunk_bytes,
                                        async_write=async_write,
                                        write_deadline_s=write_deadline_s,
@@ -229,6 +219,19 @@ class KishuSession:
         self.loader.obs = self.obs
         self.restorer = DataRestorer(self.graph, self.loader, self.registry)
         self.loader.fallback = self.restorer.recompute
+        # cost-based checkout planner (DESIGN.md §18): prices fetch vs
+        # replay vs patch per co-variable from the obs registry's store
+        # metrics + persisted exec_s; off keeps the fixed fallback ladder
+        from repro_torch.core.planner import (CheckoutPlanner,
+                                              resolve_plan_mode)
+        self.plan_mode = resolve_plan_mode(plan_mode)
+        self.planner = CheckoutPlanner(
+            self.graph, self.loader, commands=self.registry,
+            unsafe=self._replay_unsafe, mode=self.plan_mode,
+            cache=self.chunk_cache, obs=self.obs,
+            max_depth=self.restorer.max_depth)
+        if self.planner.engaged:
+            self.loader.planner = self.planner
         # live cache gauges: this session's view of its (possibly shared)
         # chunk cache — kishud disambiguates by tenant const-label
         reg = self.obs.registry
@@ -298,6 +301,11 @@ class KishuSession:
         t0 = time.perf_counter()
         with self.obs.span("exec"):
             fn(self.tracked, **args)
+            # a cell returns with its kernels still in flight: on a card the
+            # span (and exec_s, the planner's replay price) ends when the
+            # device has finished them
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         stats.exec_s = time.perf_counter() - t0
 
         accessed = (set(self.tracked.accessed) | set(self.tracked.written)
@@ -407,11 +415,27 @@ class KishuSession:
             self.writer.flush()
             self.engine.flush()  # pending publishes land before time travel
             self.restorer.clear_memo()
-            self.records, stats = self.loader.checkout(
-                self.tracked, self.records, commit_id)
+            try:
+                self.records, stats = self.loader.checkout(
+                    self.tracked, self.records, commit_id)
+            finally:
+                # replayed namespaces may hold device memory: let them go
+                # once the checkout has taken what it needs
+                self.restorer.clear_memo()
             self.covs = group_covariables(self.records)
         self.last_checkout = stats
         return stats
+
+    def plan(self, commit_id: str):
+        """Price a checkout of ``commit_id`` without executing it: the
+        :class:`~repro_torch.core.planner.PricedPlan` behind ``kishu plan``.
+        Pending commits are flushed first so the plan sees the same graph
+        a checkout would."""
+        with self.obs.activate(), self.obs.span("plan", commit=commit_id):
+            self.writer.flush()
+            self.engine.flush()
+            return self.planner.price_checkout(
+                self.graph.head, commit_id, records=self.records, ns=self.ns)
 
     # ------------------------------------------------------------------
     # introspection & maintenance

@@ -40,8 +40,8 @@ def einsum_f32(eq: str, *ops: torch.Tensor) -> torch.Tensor:
 
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue A 10: the "
-        f"port runs the dense GQA decoder only)")
+        f"{what} is not ported to repro_torch yet (ROADMAP Queue A, "
+        f"remaining workloads: the port runs the dense GQA decoder only)")
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """InstrumentedStore — per-op latency/bytes metrics around any ChunkStore.
 
 Pure delegation plus one ``perf_counter`` pair per op: every backend (dir /
-sqlite / memory) reports
+sqlite / memory, and fabric compositions — shard, replica, tier) reports
 ``kishu_store_op_seconds{op,backend}`` histograms and directional
 ``kishu_store_bytes_total{dir,backend}`` counters without knowing the
 observability plane exists.  The wrapper adds *zero* store operations of
@@ -13,8 +13,9 @@ tenant namespace view on top (``NamespacedStore(InstrumentedStore(root),
 tenant)``) — the txn engine's ``isinstance(store, NamespacedStore)``
 unwrapping and meta-prefix logic keep working untouched.
 
-:func:`instrument_tree` wraps a store once; the fabric compositions whose
-children it would label per shard are not ported yet.
+:func:`instrument_tree` optionally descends into a fabric topology and
+wraps each shard / replica / tier child with a positional backend label
+(``shard0:dir`` …) so a straggler shard shows up as its own histogram.
 """
 from __future__ import annotations
 
@@ -243,9 +244,25 @@ class InstrumentedStore(ChunkStore):
 
 
 def instrument_tree(store: Any, registry: MetricsRegistry) -> Any:
-    """Wrap ``store`` in an :class:`InstrumentedStore` (idempotent).  The
-    fabric compositions whose children this would label separately are not
-    ported yet, so every store is one leaf here."""
+    """Wrap ``store`` and (for fabric compositions) each child, labelling
+    children positionally so per-shard / per-replica stragglers separate.
+    Mutates fabric child lists in place; intended for benches and tests,
+    not for stores shared across sessions."""
+    from repro_torch.core import fabric
+
+    if isinstance(store, fabric.ShardedStore):
+        store.shards = [
+            InstrumentedStore(s, registry,
+                              backend=f"shard{i}:{backend_label(s)}")
+            for i, s in enumerate(store.shards)]
+    elif isinstance(store, fabric.ReplicatedStore):
+        store.replicas = [
+            InstrumentedStore(s, registry,
+                              backend=f"rep{i}:{backend_label(s)}")
+            for i, s in enumerate(store.replicas)]
+    elif isinstance(store, fabric.TieredStore):
+        store.cold = InstrumentedStore(
+            store.cold, registry, backend=f"cold:{backend_label(store.cold)}")
     if isinstance(store, InstrumentedStore):
         return store
     return InstrumentedStore(store, registry)

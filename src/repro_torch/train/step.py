@@ -71,7 +71,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     if microbatches != 1:
         raise NotImplementedError(
             "microbatches > 1 (gradient accumulation) is not ported to "
-            "repro_torch yet (ROADMAP Queue A 10)")
+            "repro_torch yet (ROADMAP Queue A, remaining workloads)")
     loss_fn = make_loss_fn(cfg, moe_aux_coef=moe_aux_coef)
 
     def grads_of(params, batch):

@@ -1021,3 +1021,231 @@ def test_tensor_from_bytes_through_pinned_memory(dev, dtype):
         assert tuple(got.shape) == shape and got._base is None
         assert ser.tensor_to_bytes(got) == data \
             == ser.tensor_to_bytes(want)           # bytes: random floats
+
+
+# ---------------------------------------------------------------------------
+# the checkout planner, the fabric, kishud and the baselines on the card
+# ---------------------------------------------------------------------------
+
+def _planner_cells(dev):
+    def init(ns):
+        g = torch.Generator(device="cpu").manual_seed(5)
+        ns["w"] = torch.randn(400_000, generator=g).to(dev)
+        ns["e"] = torch.randn(300_000, generator=g).to(dev) \
+            .to(torch.bfloat16)
+        ns["seed"] = torch.arange(4, dtype=torch.float32, device=dev)
+
+    def step(ns, k=1.0):
+        ns["w"] = ns["w"] * 0.5 + k
+
+    def derive(ns, scale=1.0):
+        ns["big"] = torch.arange(100_000, dtype=torch.float32,
+                                 device=ns["seed"].device) \
+            * ns["seed"].sum() * scale
+
+    def touch(ns, v=1.0):
+        ns["e"][::4096] = v
+
+    return {"init": init, "step": step, "derive": derive, "touch": touch}
+
+
+def _planner_run(dev, store, mode):
+    from repro_torch.core import KishuSession
+    s = KishuSession(store, chunk_bytes=1 << 16, cache_bytes=0,
+                     plan_mode=mode, device=dev)
+    for name, fn in _planner_cells(dev).items():
+        s.register(name, fn)
+    s.init_state({})
+    cids = [s.run("init")]
+    for k in (1.0, 2.0):
+        cids += [s.run("step", k=k), s.run("derive", scale=k),
+                 s.run("touch", v=k)]
+    return s, cids
+
+
+def _exact(ns, snap, cb=1 << 16):
+    from repro_torch.core.delta import exact_dirty_indices
+    assert sorted(ns.names()) == sorted(snap)
+    for n, t in snap.items():
+        assert ns[n].is_cuda and ns[n].dtype == t.dtype
+        assert exact_dirty_indices(ns[n], t, cb) == [], n
+
+
+@pytest.mark.parametrize("mode", ["off", "fetch", "replay", "auto"])
+def test_planner_modes_on_a_cuda_session(dev, mode):
+    """Every planner mode restores the same state bit for bit (block_diff)
+    and the stores hold the same chunk keys; forced replay recomputes on
+    the card exactly what it planned."""
+    from repro_torch.core import MemoryStore
+    base, cids = _planner_run(dev, MemoryStore(), "off")
+    snaps = {}
+    for c in cids:
+        base.checkout(c)
+        snaps[c] = {n: base.ns[n].clone() for n in base.ns.names()}
+    s, cids2 = _planner_run(dev, MemoryStore(), mode)
+    assert cids2 == cids
+    for c in (cids[1], cids[-1], cids[2], cids[0], cids[4]):
+        st = s.checkout(c)
+        _exact(s.ns, snaps[c])
+        if mode == "replay":
+            assert st.covs_recomputed == st.covs_planned_replay
+        if mode == "fetch":
+            assert st.covs_recomputed == 0
+        assert not s.restorer._memo       # replayed tensors let go
+    assert set(s.store.list_chunk_keys()) \
+        == set(base.store.list_chunk_keys())
+    base.close()
+    s.close()
+
+
+def test_mixed_plan_stream_order_on_the_card(dev):
+    """A mixed plan (a fetch lane on the helper thread, a replay lane here)
+    checked out under a side stream, 20 times: the helper thread issues on
+    the caller's stream, and every checkout is exact."""
+    from repro_torch.core import MemoryStore
+    s, cids = _planner_run(dev, MemoryStore(), "replay")
+    s.register("fill", lambda ns, v=1.0: ns.__setitem__(
+        "x", torch.full((2_000_000,), v, device=dev)), replay_safe=False)
+    s.run("fill", v=1.0)
+    c1 = s.run("step", k=3.0)
+    want = {n: s.ns[n].clone() for n in s.ns.names()}
+    s.run("fill", v=7.0)
+    c2 = s.run("step", k=4.0)
+    want2 = {n: s.ns[n].clone() for n in s.ns.names()}
+    lanes = []
+    load_covs = s.loader.load_covs
+
+    def recording(items, stats=None, **kw):
+        import threading
+        lanes.append((threading.current_thread().name,
+                      torch.cuda.current_stream(dev)))
+        return load_covs(items, stats, **kw)
+    s.loader.load_covs = recording
+    side = torch.cuda.Stream(dev)
+    for _ in range(20):
+        with torch.cuda.stream(side):
+            lanes.clear()
+            st = s.checkout(c1)
+            assert st.covs_planned_fetch >= 1 and st.covs_planned_replay >= 1
+            assert any(name == "kishu-fetch-lane" for name, _ in lanes)
+            assert all(x == side for _, x in lanes)
+            _exact(s.ns, want)
+            s.checkout(c2)
+            _exact(s.ns, want2)
+    s.close()
+
+
+def test_exec_s_counts_the_cells_device_time(dev):
+    """A cell that only launches kernels returns before they finish; its
+    exec_s still covers their device time (CUDA events)."""
+    from repro_torch.core import KishuSession, MemoryStore
+    s = KishuSession(MemoryStore(), cache_bytes=0, device=dev)
+    events = {}
+
+    def spin(ns, n=40):
+        a = ns["a"]
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            a = a @ a
+            a = a / a.abs().amax().clamp_min(1.0)
+        e1.record()
+        events["ev"] = (e0, e1)
+        ns["a"] = a
+    s.register("spin", spin)
+    s.init_state({"a": torch.randn(4096, 4096, device=dev)})
+    s.run("spin")
+    e0, e1 = events["ev"]
+    e1.synchronize()
+    device_s = e0.elapsed_time(e1) / 1e3
+    assert device_s > 0.01
+    assert s.last_run.exec_s >= device_s
+    doc = s.graph.nodes[s.head].stats
+    assert doc["exec_s"] == s.last_run.exec_s
+    s.close()
+
+
+def test_kishud_two_tenants_on_the_card(dev):
+    from repro_torch.core import MemoryStore
+    from repro_torch.launch.kishud import Kishud
+    d = Kishud(MemoryStore(), workers=2, lease_ttl_s=30.0,
+               chunk_bytes=1 << 16)
+    assert d.device.type == "cuda"
+    ts = {t: d.session(t) for t in ("alice", "bob")}
+    cids = {}
+    for i, (t, s) in enumerate(ts.items()):
+        s.register("set", lambda ns, v: ns["w"].fill_(v))
+        s.init_state({"w": torch.zeros(1_000_000, device=dev)})
+        cids[t] = [s.run("set", v=float(i + 1)), s.run("set", v=9.0)]
+    for i, (t, s) in enumerate(ts.items()):
+        assert s.session.chunk_cache is d.cache and s.session.device == dev
+        s.checkout(cids[t][0])
+        assert s.ns["w"].is_cuda and torch.all(s.ns["w"] == float(i + 1))
+    assert d.cache.hits > 0
+    assert d.status()["n_sessions"] == 2
+    d.close()
+
+
+def test_baselines_round_trip_a_cuda_state(dev):
+    from repro_torch.core import MemoryStore, Namespace
+    from repro_torch.core.baselines import (DetReplaySession, DumpSession,
+                                            PageIncremental)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    want = {"w": torch.randn(70_001, generator=g).to(dev),
+            "h": torch.randn(5_000, generator=g).to(torch.bfloat16).to(dev),
+            "u": torch.randint(0, 256, (9_999,), generator=g,
+                               dtype=torch.uint8).to(dev)}
+    for cls in (DumpSession, PageIncremental):
+        b = cls(MemoryStore())
+        assert b.device.type == "cuda"
+        ns = Namespace()
+        for k, v in want.items():
+            ns[k] = v.clone()
+        args = {"parent": None} if cls is PageIncremental else {}
+        b.checkpoint(ns, "t1", **args)
+        ns["w"].mul_(2)
+        ns["u"] = torch.zeros(3, dtype=torch.uint8, device=dev)
+        b.checkout(ns, "t1")
+        for k, v in want.items():
+            assert ns[k].is_cuda and torch.equal(ns[k], v), (cls, k)
+    s = DetReplaySession(MemoryStore(), chunk_bytes=1 << 16)
+    s.register("double", lambda ns: ns["w"].mul_(2), deterministic=True)
+    s.init_state({"w": want["w"].clone()})
+    c1 = s.run("double")
+    s.run("double")
+    st = s.checkout(c1)
+    assert st.covs_recomputed >= 1 and s.ns["w"].is_cuda
+    assert torch.equal(s.ns["w"], want["w"] * 2)
+    s.close()
+
+
+def test_fabric_checkout_after_replica_wipe_on_the_card(dev, tmp_path):
+    import os
+    import shutil
+    from repro_torch.core import KishuSession, open_store, scrub
+    uri = (f"fabric://rep(shard(dir://{tmp_path}/s0,dir://{tmp_path}/s1),"
+           f"dir://{tmp_path}/r)")
+    s = KishuSession(open_store(uri), chunk_bytes=1 << 16, cache_bytes=0,
+                     plan_mode="auto", device=dev)
+    cells = _planner_cells(dev)
+    for name, fn in cells.items():
+        s.register(name, fn)
+    s.init_state({})
+    c0 = s.run("init")
+    want = {n: s.ns[n].clone() for n in s.ns.names()}
+    c1 = s.run("touch", v=3.0)
+    want1 = {n: s.ns[n].clone() for n in s.ns.names()}
+    shutil.rmtree(tmp_path / "r" / "chunks")
+    os.makedirs(tmp_path / "r" / "chunks")
+    s.checkout(c0)
+    _exact(s.ns, want)
+    assert scrub(open_store(uri), repair=True).remaining == 0
+    for sub in ("s1",):
+        shutil.rmtree(tmp_path / sub / "chunks")
+        os.makedirs(tmp_path / sub / "chunks")
+    s.checkout(c1)
+    _exact(s.ns, want1)
+    s.close()
+    assert scrub(open_store(uri), repair=True).remaining == 0
+    assert scrub(open_store(uri)).problems == 0

@@ -53,12 +53,30 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.kernels.flash_attention.ops\n"
             "import repro_torch.train.loop, repro_torch.launch.train\n"
             "import repro_torch.launch.serve, repro_torch.models.lm\n"
+            "import repro_torch.core.planner, repro_torch.core.fabric\n"
+            "import repro_torch.core.baselines\n"
+            "import repro_torch.launch.kishu_cli, repro_torch.launch.kishud\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
             "       or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=str(ROOT), timeout=120)
+
+
+NEW_MODULES = ("core/planner.py", "core/fabric.py", "core/baselines.py",
+               "launch/kishu_cli.py", "launch/kishud.py")
+
+
+@pytest.mark.parametrize("rel", NEW_MODULES)
+def test_kishu_modules_exist_and_stand_alone(rel):
+    """The planner, the fabric, the baselines, the CLI and kishud: each
+    has its counterpart in the port, importing neither jax nor repro."""
+    path = PORT / rel
+    assert path.is_file() and (ROOT / "src" / "repro" / rel).is_file()
+    assert _bad_imports(path) == []
+    text = path.read_text()
+    assert "repro_torch" in text
 
 
 def test_kernel_modules_build_nothing_at_import(tmp_path, monkeypatch):

@@ -152,9 +152,11 @@ def test_untied_head():
     ids=lambda kw: "-".join(kw))
 def test_unported_features_raise(kw):
     cfg = treduced(tget("smollm-360m")).replace(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 10"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue A, remaining workloads"):
         tlm.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 10"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue A, remaining workloads"):
         tlm.init_params(cfg, torch.Generator().manual_seed(0))
 
 

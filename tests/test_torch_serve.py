@@ -112,7 +112,8 @@ def test_init_caches_defaults_to_the_card():
 def test_unported_caches_raise(kw):
     """MLA, SSM and enc-dec (``enc_out``) caches are not ported."""
     cfg = treduced(tget("smollm-360m")).replace(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 10"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue A, remaining workloads"):
         tlm.init_caches(cfg, 1, 4, device="cpu")
 
 

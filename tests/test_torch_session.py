@@ -286,14 +286,15 @@ def test_device_defaults_and_unported_paths(tmp_path):
         pytest.skip("a card is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcore.KishuSession(tcore.MemoryStore())
-    with pytest.raises(NotImplementedError):
-        tcore.KishuSession(tcore.MemoryStore(), device="cpu",
-                           plan_mode="auto")
-    with pytest.raises(NotImplementedError):
-        tcore.open_store("fabric://shard(memory://,memory://)")
+    # the planner and the fabric, once placeholders that raised, open
     s = tcore.KishuSession(tcore.MemoryStore(), device="cpu",
-                           plan_mode="off")
-    assert s.device == torch.device("cpu")
+                           plan_mode="auto")
+    assert s.plan_mode == "auto" and s.loader.planner is s.planner
+    s.close()
+    fab = tcore.open_store("fabric://shard(memory://,memory://)")
+    assert isinstance(fab, tcore.ShardedStore) and len(fab.shards) == 2
+    s = tcore.KishuSession(fab, device="cpu", plan_mode="off")
+    assert s.device == torch.device("cpu") and s.loader.planner is None
     s.close()
 
 

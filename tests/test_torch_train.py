@@ -229,7 +229,8 @@ def test_train_steps_match_jax(arch, steps):
 
 def test_microbatches_not_ported():
     tcfg = treduced(tget("smollm-360m"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 10"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue A, remaining workloads"):
         tstep.make_train_step(tcfg, tadamw.AdamWConfig(), microbatches=2)
 
 
