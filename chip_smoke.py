@@ -17,7 +17,8 @@ Phase 1  holds every kernel against its plain torch version on the card at
          heads of 64, causal) and six more (float32, full attention, no
          GQA, head dim 128, ragged S, S 4096) on each of its routes (bf16:
          the tensor-core route "tc" and the FMA route; float32: FMA), and
-         timed beside SDPA.  Every kernel, index_copy_, the block_diff
+         timed beside SDPA; Phase 7b's prefill shape (bf16, 8 x 128, 32/8
+         heads of 128) is one of them.  Every kernel, index_copy_, the block_diff
          library call and SDPA are timed by device time (CUDA-graph replay,
          5 rounds in turns; median and range), with the L2 warm and with
          it cold (a 128 MiB write before each call, its own time taken
@@ -58,7 +59,7 @@ Phase 4b the checkout planner on Cell B: three trainer sessions over Phase
          beside the wall time and the head and tail of its plan's lines.
          Then the port's kishu CLI runs ``log``, ``plan``, ``verify``,
          ``fsck`` and ``topology`` in process on Phase 4's store.
-Phase 5  the serving path (examples/serve_batched.py on the card):
+Phase 5  Cell C, the serving path (examples/serve_batched.py on the card):
          SmolLM-360M at full width and depth (bf16, random from a seed);
          ``make_prefill_step`` on 8 x 512 prompt tokens (the flash kernel,
          once per layer), the teacher-forced decode loop fills 8 x 576-slot
@@ -84,12 +85,40 @@ Phase 6  Cell D, the storage fabric: Cell A's state cut to its first 8
          ``scrub`` must find no problem.  Every checkout must be exact
          under block_diff; launch counts are read from this phase.  The
          CLI verbs of Phase 4b then run on this fabric.
+Phase 7  Cell E, Mamba-2/SSD serving: mamba2-780m at full width and depth
+         (48 layers, d_model 1536, 48 SSD heads of 64, d_state 128, chunk
+         256, bf16, random from a seed), Phase 5's flow: chunked-SSD
+         prefill of 8 x 512 tokens, the decode loop (a CUDA graph of the
+         recurrence) fills the caches — state [48, 8, 48, 64, 128] float32
+         (603,979,776 bytes) and conv [48, 8, 3, 3328] bf16 — and is held
+         against the prefill's logits; the prefix is committed in 1 MiB
+         chunks, and four rollbacks (flavors 1, 2, 3, 1) and one by the
+         eager step each restore a state that every decode step rewrote
+         in full, verified exact by block_diff; the graph's generations
+         equal the eager step's bit for bit.  Each rollback's wall time,
+         bytes loaded, patch or full load, and each recapture are
+         recorded, and one decode step is profiled.
+Phase 7b Cell F, MoE serving: phi3.5-moe-42b-a6.6b at full width (d_model
+         4096, 32/8 heads of 128, 16 experts top-2 of d_ff 6400, vocab
+         32064, capacity factor 1.25), cut to its first 2 of 32 layers;
+         Phase 5's flow at batch 8, a 128-token prompt, 32 generated
+         tokens, 16 KiB chunks, two rollbacks (flavors 1, 2) and one by
+         the eager step.  Prefill and decode logits are held on the
+         sequences whose prefill dropped no assignment, at the positions
+         where both routed each token to the same experts.
 
 Output: per-phase lines, one JSON line of kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  The full record goes to
 ``build/chip_smoke.json`` (Phase 4b's plan estimates beside the wall
 times, and every plan's lines).  Without a card, or outside the
 repository, it exits non-zero before printing any result.
+
+    python3 chip_smoke.py --only phase2,phase6 [--root DIR]
+
+runs only the named phases (2 and 6, each on a store of its own), taken
+from the ``chip_smoke.py`` and ``src/`` under ``DIR`` (default: this
+tree), and prints one line of wall times each.  Two trees are compared by
+calling it in turns with each tree's root.
 """
 from __future__ import annotations
 
@@ -145,6 +174,25 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 64
 SERVE_CHUNK = 1 << 14
 SERVE_PATH_KERNELS = ("flash_attention", "chunk_hash", "delta_pack",
                       "patch_scatter", "block_diff")
+# Cell E (Phase 7): mamba2-780m serving at Cell C's traffic (batch 8, a
+# 512-token prompt, 64 generated); its state is rewritten in full by every
+# decode step, so 1 MiB chunks (16 KiB would only multiply files); no
+# attention, no flash; rollbacks load the state in full (every chunk
+# differs), so patch_scatter launches only if one patches
+SSM_BATCH, SSM_PROMPT, SSM_GEN = 8, 512, 64
+SSM_CHUNK = 1 << 20
+SSM_PATH_KERNELS = ("chunk_hash", "delta_pack", "block_diff")
+# Cell F (Phase 7b): phi3.5-moe-42b-a6.6b at full width, depth cut to 2
+# of 32 layers (each layer's 16 experts are 2.52 GB in bf16)
+MOE_LAYERS = 2
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 8, 128, 32
+MOE_PATH_KERNELS = SERVE_PATH_KERNELS
+# the phases whose launch counts the kernels line reports, each read from
+# its own run (counts set to 0 just before it)
+PATHS = ("phase2", "phase4", "phase4b", "phase5", "phase6", "phase7",
+         "phase7b")
+# the phases ``--only`` runs alone: each takes (torch, dev, workdir)
+TIMED_PHASES = ("phase2", "phase6")
 
 
 def fail(msg: str) -> None:
@@ -615,11 +663,13 @@ def phase1(torch, dev) -> list:
 
 def flash_cases(torch) -> list:
     """(label, B, S, Hq, Hkv, hd, dtype, causal): Phase 5's prefill shape
-    first, then float32, full attention, no GQA, qwen3-1.7b's head dim, a
-    ragged S and a long S."""
+    first, then Phase 7b's (phi3.5-moe: 32/8 heads of 128), float32, full
+    attention, no GQA, qwen3-1.7b's head dim, a ragged S and a long S."""
     bf, f32 = torch.bfloat16, torch.float32
     b, s, hq, hkv = SERVE_BATCH, SERVE_PROMPT, N_HEADS, N_KV
     return [("main", b, s, hq, hkv, HEAD_DIM, bf, True),
+            ("phi35_moe_prefill", MOE_BATCH, MOE_PROMPT, 32, 8, 128, bf,
+             True),
             ("float32", b, s, hq, hkv, HEAD_DIM, f32, True),
             ("full", b, s, hq, hkv, HEAD_DIM, bf, False),
             ("n_rep_1", b, s, hq, hq, HEAD_DIM, bf, True),
@@ -630,7 +680,7 @@ def flash_cases(torch) -> list:
 
 def phase1_flash(torch, dev) -> dict:
     """The flash kernel against its plain version at Phase 5's prefill
-    shape and six more, on each route that takes the inputs (bf16: the
+    shape, Phase 7b's and six more, on each route that takes the inputs (bf16: the
     tensor-core route "tc" and the FMA route; float32: FMA only); device
     and host-loop times of each route and of SDPA, the plain version's
     time and the bound of each."""
@@ -1498,28 +1548,46 @@ def profile_decode(torch, step, params, caches, tok, n: int) -> dict:
                                        3)) for e in top]}
 
 
-def phase5(torch, dev, workdir: Path) -> dict:
-    """examples/serve_batched.py on the card: prefill (flash kernel) and the
-    teacher-forced decode loop fill the KV caches, the prefix is committed
-    once, and each of three flavors of generation (then flavor 1 again)
-    starts from a checkout of the prefix, verified exactly by block_diff."""
+def logit_bound_of(torch, cfg, params) -> float:
+    """Bound on |prefill - decode| logits, from bf16: one rounding (2**-8
+    relative) per residual add, 2 per layer, summed as a random walk,
+    moves the final normed state x (|x| = sqrt(d_model)) by
+    2**-8 sqrt(2 L) sqrt(d_model); a logit moves by at most that times the
+    norm of its unembedding row (the embedding's when tied)."""
     import math
+    w = params["embed"].float() if cfg.tie_embeddings \
+        else params["lm_head"].float().t()
+    return 2 ** -8 * math.sqrt(2 * cfg.n_layers) * math.sqrt(cfg.d_model) \
+        * float(w.norm(dim=1).max())
+
+
+def serve_cell(torch, dev, workdir: Path, tag: str, cfg, params, *,
+               batch: int, prompt: int, gen: int, chunk_bytes: int,
+               flavors: tuple, path_kernels: tuple,
+               compare_mask=None, after_prefill=None) -> dict:
+    """examples/serve_batched.py on the card for ``cfg``: ``make_prefill_step``
+    on ``batch`` x ``prompt`` tokens, then the teacher-forced decode loop
+    (a CUDA graph of the step) fills the caches and its logits are held
+    against the prefill's within :func:`logit_bound_of`; the prefix is
+    committed once (dir:// store, ``chunk_bytes`` chunks), and each flavor
+    of generation starts from a checkout of the prefix that block_diff
+    verifies exact.  The first two flavors must generate other tokens; a
+    repeated flavor must give the same tokens and caches; a last
+    generation by the eager step, from the same checkout, must equal the
+    first flavor's bit for bit.
+
+    ``compare_mask(prompts)``, run before the counted path, returns the
+    [B,S] positions at which prefill and decode are held (all by default)
+    and a dict recorded beside them; ``after_prefill(rec, logits)`` runs
+    inside the prefill cell after the prefill step.  Kernel launches are
+    counted from the prefix commit to the eager generation's
+    verification, and each of ``path_kernels`` must have launched."""
     from repro_torch.core import KishuSession, open_store
     from repro_torch.kernels import _lib
     from repro_torch.models import lm
-    from repro_torch.models.config import get_config
-    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train import step as step_lib
 
-    cfg = get_config("smollm-360m")            # full width and depth
-    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    leaves = tree_leaves(params)
-    n_params = sum(t.numel() for t in leaves)
-    check(n_params == 361_821_120, f"{n_params} parameters")
-    check(all(t.dtype == torch.bfloat16 and t.is_cuda for t in leaves),
-          "serving params must be bf16 on the card")
-    b, plen, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
-    vocab = cfg.vocab_size
+    b, plen, vocab = batch, prompt, cfg.vocab_size
     prompts = torch.randint(0, vocab, (b, plen), dtype=torch.int32,
                             device=dev, generator=torch.Generator(
                                 device=dev).manual_seed(1))
@@ -1528,48 +1596,44 @@ def phase5(torch, dev, workdir: Path) -> dict:
     # jits it); the eager step runs one generation for comparison
     decode = step_lib.GraphedDecodeStep(cfg)
     eager_decode = step_lib.make_decode_step(cfg)
-    # bound on |prefill - decode| logits, from bf16: one rounding (2**-8
-    # relative) per residual add, 2 per layer, summed as a random walk,
-    # moves the final normed state x (|x| = sqrt(d_model)) by
-    # 2**-8 sqrt(2 L) sqrt(d_model); a logit moves by at most that times
-    # the embedding row's norm
-    row_norm = float(params["embed"].float().norm(dim=1).max())
-    logit_bound = 2 ** -8 * math.sqrt(2 * cfg.n_layers) \
-        * math.sqrt(cfg.d_model) * row_norm
-    rec: dict = {"arch": cfg.name, "params": n_params, "batch": b,
-                 "prompt": plen, "gen": gen, "chunk_bytes": SERVE_CHUNK,
-                 "logit_bound": logit_bound}
+    logit_bound = logit_bound_of(torch, cfg, params)
+    rec: dict = {"arch": cfg.name, "batch": b, "prompt": plen, "gen": gen,
+                 "chunk_bytes": chunk_bytes, "logit_bound": logit_bound}
+    mask = torch.ones((b, plen), dtype=torch.bool, device=dev)
+    if compare_mask is not None:
+        mask, rec["compare"] = compare_mask(prompts)
+    errs: dict = {}
 
     def prefill(ns):
         t0 = time.perf_counter()
         logits = prefill_step(params, {"tokens": prompts})
         torch.cuda.synchronize()
         rec["prefill_step_s"] = time.perf_counter() - t0
-        rec["prefill_step_launches"] = _lib.launches()["flash_attention"]
-        rec["prefill_step_routes"] = _lib.route_launches()["flash_attention"]
+        if after_prefill is not None:
+            after_prefill(rec, logits)
         check(tuple(logits.shape) == (b, plen, cfg.padded_vocab)
               and logits.dtype == torch.float32
               and bool(torch.isfinite(logits).all()),
-              f"prefill logits {tuple(logits.shape)} {logits.dtype}")
+              f"{tag} prefill logits {tuple(logits.shape)} {logits.dtype}")
         t0 = time.perf_counter()
         cap0, cap_s0 = decode.captures, decode.capture_s
         caches = lm.init_caches(cfg, b, plen + gen)
         tok = prompts[:, :1]
-        err_max = torch.zeros((), device=dev)
+        err = torch.zeros((b, plen), device=dev)
         err_sum = torch.zeros((), dtype=torch.float64, device=dev)
         with torch.no_grad():
             for t in range(plen):
                 lg, nxt, caches = decode.with_logits(
                     params, caches, {"tokens": tok, "index": t})
                 d = (lg[:, 0] - logits[:, t]).abs()
-                err_max = torch.maximum(err_max, d.max())
+                err[:, t] = d.amax(dim=-1)
                 err_sum += d.double().sum()
                 tok = prompts[:, t + 1:t + 2] if t + 1 < plen else nxt
         torch.cuda.synchronize()
         rec["decode_prefill_s"] = time.perf_counter() - t0
         rec["decode_prefill_captures"] = decode.captures - cap0
         rec["decode_prefill_capture_s"] = decode.capture_s - cap_s0
-        rec["prefill_decode_max_abs_err"] = float(err_max)
+        errs["max"] = err
         rec["prefill_decode_mean_abs_err"] = float(err_sum) / logits.numel()
         last = logits[:, -1]
         rec["last_argmax_agree"] = int(
@@ -1598,7 +1662,7 @@ def phase5(torch, dev, workdir: Path) -> dict:
         return generate
 
     sess = KishuSession(open_store(f"dir://{workdir}/serve_cas"),
-                        chunk_bytes=SERVE_CHUNK, trace=True)
+                        chunk_bytes=chunk_bytes, trace=True)
     check(sess.device.type == "cuda", "the session did not default to cuda")
     tracer = sess.obs.tracer
     sess.register("prefill", prefill)
@@ -1621,6 +1685,25 @@ def phase5(torch, dev, workdir: Path) -> dict:
                       "chunks_written": w.chunks_written,
                       "chunks_encoded": w.chunks_encoded}
 
+    def checkout_rec(label: str, target: str, snap: dict) -> None:
+        t0 = time.perf_counter()
+        st = sess.checkout(target)
+        torch.cuda.synchronize()
+        rec[f"{label}_s"] = time.perf_counter() - t0
+        rec[f"{label}_stages"] = tracer.stage_totals()
+        tracer.clear()
+        rec[label] = {
+            "covs_loaded": st.covs_loaded,
+            "covs_patched": st.covs_patched,
+            "covs_scattered": st.covs_scattered,
+            "chunks_patched": st.chunks_patched,
+            "bytes_loaded": st.bytes_loaded,
+            "bytes_cached": st.bytes_cached,
+            "bytes_host2dev": st.bytes_host2dev}
+        rec[f"verify_{label}_s"] = verify_exact(
+            torch, sess.ns, snap, f"{tag} {label} to the prefix")
+
+    n_gen = len(flavors)
     tokens: dict = {}
     try:
         tracer.clear()
@@ -1636,34 +1719,19 @@ def phase5(torch, dev, workdir: Path) -> dict:
         rec["cache_bytes"] = sum(sess.ns[n].numel()
                                  * sess.ns[n].element_size()
                                  for n in cache_names)
-        check(rec["prefill_step_launches"] == cfg.n_layers,
-              f"prefill launched flash {rec['prefill_step_launches']} "
-              f"times, want {cfg.n_layers}")
-        check(rec["prefill_step_routes"] == {"tc": cfg.n_layers, "fma": 0},
-              f"prefill flash routes {rec['prefill_step_routes']}, want "
-              f"all {cfg.n_layers} on tc")
+        err = errs.pop("max")
+        rec["prefill_decode_max_abs_err"] = float(err[mask].max())
+        rec["prefill_decode_max_abs_err_all"] = float(err.max())
+        rec["prefill_decode_positions_held"] = int(mask.sum())
+        check(rec["prefill_decode_positions_held"] > 0,
+              f"{tag}: no position to hold prefill against decode at")
         check(rec["prefill_decode_max_abs_err"] <= logit_bound,
-              f"prefill and decode logits differ by "
+              f"{tag}: prefill and decode logits differ by "
               f"{rec['prefill_decode_max_abs_err']} > {logit_bound}")
         snap0 = tensor_snapshot(torch, sess.ns)
         snap1 = None
-        for i, flavor in enumerate((1, 2, 3, 1)):
-            t0 = time.perf_counter()
-            st = sess.checkout(c_prefix)
-            torch.cuda.synchronize()
-            rec[f"checkout_{i}_s"] = time.perf_counter() - t0
-            rec[f"checkout_{i}_stages"] = tracer.stage_totals()
-            tracer.clear()
-            rec[f"checkout_{i}"] = {
-                "covs_loaded": st.covs_loaded,
-                "covs_patched": st.covs_patched,
-                "covs_scattered": st.covs_scattered,
-                "chunks_patched": st.chunks_patched,
-                "bytes_loaded": st.bytes_loaded,
-                "bytes_cached": st.bytes_cached,
-                "bytes_host2dev": st.bytes_host2dev}
-            rec[f"verify_checkout_{i}_s"] = verify_exact(
-                torch, sess.ns, snap0, f"checkout {i} to the prefix")
+        for i, flavor in enumerate(flavors):
+            checkout_rec(f"checkout_{i}", c_prefix, snap0)
             t0 = time.perf_counter()
             cap0, cap_s0 = decode.captures, decode.capture_s
             sess.run("generate", n=gen, flavor=flavor)
@@ -1673,37 +1741,39 @@ def phase5(torch, dev, workdir: Path) -> dict:
                 capture_s=decode.capture_s - cap_s0)
             got = sess.ns["generated"]
             check(tuple(got.shape) == (b, gen) and int(got.max()) < vocab
-                  and int(got.min()) >= 0, f"generated {tuple(got.shape)}")
+                  and int(got.min()) >= 0,
+                  f"{tag} generated {tuple(got.shape)}")
             if flavor in tokens:
                 check(torch.equal(got, tokens[flavor]),
-                      f"flavor {flavor} regenerated other tokens")
+                      f"{tag}: flavor {flavor} regenerated other tokens")
                 rec["verify_repeat_s"] = verify_exact(
-                    torch, sess.ns, snap1, f"flavor {flavor} repeated")
+                    torch, sess.ns, snap1, f"{tag} flavor {flavor} repeated")
             else:
                 tokens[flavor] = got.clone()
                 if snap1 is None:
                     snap1 = tensor_snapshot(torch, sess.ns)
-        check(not torch.equal(tokens[1], tokens[2]),
-              "flavors 1 and 2 generated the same tokens")
+        check(not torch.equal(tokens[flavors[0]], tokens[flavors[1]]),
+              f"{tag}: flavors {flavors[:2]} generated the same tokens")
         # the eager step from the same checkout: the graph's tokens and
         # caches bit for bit
-        sess.checkout(c_prefix)
-        tracer.clear()
+        checkout_rec("checkout_eager", c_prefix, snap0)
         t0 = time.perf_counter()
-        sess.run("generate_eager", n=gen, flavor=1)
+        sess.run("generate_eager", n=gen, flavor=flavors[0])
         run_rec("generate_eager", t0)
-        check(torch.equal(sess.ns["generated"], tokens[1]),
-              "the eager step generated other tokens than the graph")
+        check(torch.equal(sess.ns["generated"], tokens[flavors[0]]),
+              f"{tag}: the eager step generated other tokens than the "
+              f"graph")
         rec["verify_eager_s"] = verify_exact(
-            torch, sess.ns, snap1, "eager generate against the graph's")
+            torch, sess.ns, snap1, f"{tag} eager generate against the "
+                                   f"graph's")
         rec["launches"] = _lib.launches()
     finally:
         sess.close()
-    rec["tokens_flavor_1_seq0"] = tokens[1][0, :12].tolist()
+    rec["tokens_flavor_1_seq0"] = tokens[flavors[0]][0, :12].tolist()
     rec["prefill_tok_s"] = b * plen / rec["prefill_step_s"]
     rec["decode_prefill_tok_s"] = b * plen / rec["decode_prefill_s"]
     rec["generate_tok_s"] = [b * gen / rec[f"generate_{i}_s"]
-                             for i in range(4)]
+                             for i in range(n_gen)]
     rec["captures"] = decode.captures
     rec["capture_s"] = decode.capture_s
     # steady-state steps: the loop's time less its captures
@@ -1711,7 +1781,8 @@ def phase5(torch, dev, workdir: Path) -> dict:
         rec["decode_prefill_s"] - rec["decode_prefill_capture_s"]) / plen
     rec["generate_ms_per_step"] = [
         1e3 * (rec[f"generate_{i}"]["exec_s"]
-               - rec[f"generate_{i}"]["capture_s"]) / gen for i in range(4)]
+               - rec[f"generate_{i}"]["capture_s"]) / gen
+        for i in range(n_gen)]
     rec["eager_ms_per_step"] = 1e3 * rec["generate_eager"]["exec_s"] / gen
     # the card's busy share in a decode step: torch.profiler's kernel time
     # over the host clock, for the graph and for the eager step, on caches
@@ -1721,55 +1792,258 @@ def phase5(torch, dev, workdir: Path) -> dict:
             cfg, b, plen + gen), prompts[:, :1], min(n, plen + gen - 1))
         for name, step, n in (("graph", decode, 20),
                               ("eager", eager_decode, 5))}
-    print(f"phase5 {cfg.name}: {n_params} bf16 params; caches "
-          f"{rec['cache_leaves']} ({rec['cache_bytes']} bytes) on {dev}",
-          flush=True)
-    print(f"phase5 prefill_step: {rec['prefill_step_s']:.3f} s "
-          f"({rec['prefill_tok_s']:.0f} tok/s, "
-          f"{rec['prefill_step_launches']} flash launches, by route "
-          f"{rec['prefill_step_routes']}); decode-loop "
+    print(f"{tag} {cfg.name}: caches {rec['cache_leaves']} "
+          f"({rec['cache_bytes']} bytes) on {dev}", flush=True)
+    print(f"{tag} prefill_step: {rec['prefill_step_s']:.3f} s "
+          f"({rec['prefill_tok_s']:.0f} tok/s); decode-loop "
           f"prefill {rec['decode_prefill_s']:.3f} s "
           f"({rec['decode_prefill_tok_s']:.0f} tok/s); logits max abs diff "
-          f"{rec['prefill_decode_max_abs_err']:.4f} (mean "
+          f"{rec['prefill_decode_max_abs_err']:.4f} at "
+          f"{rec['prefill_decode_positions_held']} of {b * plen} positions "
+          f"(all: {rec['prefill_decode_max_abs_err_all']:.4f}; mean "
           f"{rec['prefill_decode_mean_abs_err']:.2e}, bound "
           f"{logit_bound:.4f}); last-position argmax agrees on "
           f"{rec['last_argmax_agree']} of {b}", flush=True)
     for name, prof in rec["decode_profile"].items():
         check(prof["kernels"] > 0, f"the profiler saw no kernel of the "
                                    f"{name} decode step")
-        print(f"phase5 decode profile, {name}: {prof['wall_ms']:.3f} ms a "
+        print(f"{tag} decode profile, {name}: {prof['wall_ms']:.3f} ms a "
               f"step on the host clock, {prof['kernel_ms']:.3f} ms of "
               f"kernels ({prof['kernels']:.0f} launches a step), busy share "
               f"{prof['busy_share']:.3f}; largest: {prof['top'][:4]}",
               flush=True)
-    print(f"phase5 decode graph: {rec['captures']} captures in "
+    print(f"{tag} decode graph: {rec['captures']} captures in "
           f"{rec['capture_s']:.3f} s; decode-loop prefill "
           f"{rec['decode_prefill_ms_per_step']:.3f} ms a step after "
           f"{rec['decode_prefill_captures']} capture(s) "
           f"({rec['decode_prefill_capture_s']:.3f} s); generate "
           f"{[round(x, 3) for x in rec['generate_ms_per_step']]} ms a step, "
-          f"captures {[rec[f'generate_{i}']['captures'] for i in range(4)]};"
-          f" the eager step {rec['eager_ms_per_step']:.3f} ms a step, its "
-          f"generation bit-identical to the graph's (tokens, caches; "
+          f"captures "
+          f"{[rec[f'generate_{i}']['captures'] for i in range(n_gen)]} in "
+          f"{[round(rec[f'generate_{i}']['capture_s'], 3) for i in range(n_gen)]}"
+          f" s; the eager step {rec['eager_ms_per_step']:.3f} ms a step, "
+          f"its generation bit-identical to the graph's (tokens, caches; "
           f"block_diff {rec['verify_eager_s']:.3f} s)", flush=True)
-    for key in ["prefill"] + [f"generate_{i}" for i in range(4)] \
+    for key in ["prefill"] + [f"generate_{i}" for i in range(n_gen)] \
             + ["generate_eager"]:
-        print(f"phase5 {key}: {rec[f'{key}_s']:.3f} s; {rec[key]}; stages "
+        print(f"{tag} {key}: {rec[f'{key}_s']:.3f} s; {rec[key]}; stages "
               f"{rec[f'{key}_stages']}", flush=True)
-    for i in range(4):
-        print(f"phase5 checkout_{i} to the prefix: {rec[f'checkout_{i}_s']:.3f}"
-              f" s, every tensor bit-identical (block_diff, "
-              f"{rec[f'verify_checkout_{i}_s']:.3f} s); {rec[f'checkout_{i}']}"
-              f"; stages {rec[f'checkout_{i}_stages']}", flush=True)
-    print(f"phase5 flavor 1 repeated: same tokens, caches bit-identical "
-          f"(block_diff, {rec['verify_repeat_s']:.3f} s); generate tok/s "
+    for key in [f"checkout_{i}" for i in range(n_gen)] + ["checkout_eager"]:
+        print(f"{tag} {key} to the prefix: {rec[f'{key}_s']:.3f} s, every "
+              f"tensor bit-identical (block_diff, "
+              f"{rec[f'verify_{key}_s']:.3f} s); {rec[key]}; stages "
+              f"{rec[f'{key}_stages']}", flush=True)
+    if "verify_repeat_s" in rec:
+        print(f"{tag} flavor {flavors[0]} repeated: same tokens, caches "
+              f"bit-identical (block_diff, {rec['verify_repeat_s']:.3f} s)",
+              flush=True)
+    print(f"{tag} generate tok/s "
           f"{[round(x, 1) for x in rec['generate_tok_s']]}; sample "
           f"{rec['tokens_flavor_1_seq0']}", flush=True)
-    print(f"phase5 kernels: {json.dumps(rec['launches'])}", flush=True)
-    missing = [k for k in SERVE_PATH_KERNELS if rec["launches"][k] <= 0]
-    check(not missing, f"kernels never launched on the serving path: "
-                       f"{missing}")
+    print(f"{tag} kernels: {json.dumps(rec['launches'])}", flush=True)
+    missing = [k for k in path_kernels if rec["launches"][k] <= 0]
+    check(not missing, f"{tag}: kernels never launched on the serving "
+                       f"path: {missing}")
     return rec
+
+
+def phase5(torch, dev, workdir: Path) -> dict:
+    """Cell C: SmolLM-360M at full width and depth through
+    :func:`serve_cell` — flash prefill (all 32 launches on the tc route),
+    16 KiB chunks, flavors 1, 2, 3, 1."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import lm
+    from repro_torch.models.config import get_config
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("smollm-360m")            # full width and depth
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(n_params == 361_821_120, f"{n_params} parameters")
+    check(all(t.dtype == torch.bfloat16 and t.is_cuda for t in leaves),
+          "serving params must be bf16 on the card")
+    print(f"phase5 {cfg.name}: {n_params} bf16 params", flush=True)
+
+    def flash_launches(rec, logits):
+        rec["prefill_step_launches"] = _lib.launches()["flash_attention"]
+        rec["prefill_step_routes"] = _lib.route_launches()["flash_attention"]
+        check(rec["prefill_step_launches"] == cfg.n_layers,
+              f"prefill launched flash {rec['prefill_step_launches']} "
+              f"times, want {cfg.n_layers}")
+        check(rec["prefill_step_routes"] == {"tc": cfg.n_layers, "fma": 0},
+              f"prefill flash routes {rec['prefill_step_routes']}, want "
+              f"all {cfg.n_layers} on tc")
+
+    rec = serve_cell(torch, dev, workdir, "phase5", cfg, params,
+                     batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+                     chunk_bytes=SERVE_CHUNK, flavors=(1, 2, 3, 1),
+                     path_kernels=SERVE_PATH_KERNELS,
+                     after_prefill=flash_launches)
+    rec["params"] = n_params
+    print(f"phase5 prefill flash: {rec['prefill_step_launches']} launches, "
+          f"by route {rec['prefill_step_routes']}", flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: Cell E, Mamba-2/SSD serving (mamba2-780m, full size)
+# ---------------------------------------------------------------------------
+
+def phase7(torch, dev, workdir: Path) -> dict:
+    """Cell E: mamba2-780m at full width and depth (48 SSD layers, bf16,
+    random from a seed) through :func:`serve_cell`: chunked-SSD prefill of
+    8 x 512 tokens, the decode loop (the SSM recurrence) fills the conv
+    and float32 state caches, the prefix is committed in 1 MiB chunks, and
+    four rollbacks (flavors 1, 2, 3, 1) and one by the eager step each
+    reload a state every decode step rewrote in full."""
+    from repro_torch.models import lm
+    from repro_torch.models.config import get_config
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("mamba2-780m")            # full width and depth
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(all(t.is_cuda for t in leaves), "serving params must be on the "
+                                          "card")
+    print(f"phase7 {cfg.name}: {n_params} params, {n_bytes} bytes "
+          f"(bf16, f32 dt_bias / A_log / D)", flush=True)
+    rec = serve_cell(torch, dev, workdir, "phase7", cfg, params,
+                     batch=SSM_BATCH, prompt=SSM_PROMPT, gen=SSM_GEN,
+                     chunk_bytes=SSM_CHUNK, flavors=(1, 2, 3, 1),
+                     path_kernels=SSM_PATH_KERNELS)
+    rec["params"], rec["param_bytes"] = n_params, n_bytes
+    state = rec["cache_leaves"]["caches/stages/stage_0/sub_0/ssm/state"]
+    check(state == [[48, SSM_BATCH, 48, 64, 128], "torch.float32"],
+          f"phase7: state cache {state}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 7b: Cell F, MoE serving (phi3.5-moe-42b-a6.6b, full width, 2 layers)
+# ---------------------------------------------------------------------------
+
+def phase7b(torch, dev, workdir: Path) -> dict:
+    """Cell F: phi3.5-moe-42b-a6.6b at its published widths, cut to its
+    first MOE_LAYERS of 32 layers (16 experts of 2.52 GB a layer in bf16:
+    the whole model does not fit one card), through :func:`serve_cell`:
+    flash prefill (hd 128, tc route) and MoE dispatch of 8 x 128 tokens,
+    the decode loop, a prefix commit in 16 KiB chunks and two rollbacks
+    (flavors 1, 2) plus one by the eager step.
+
+    Prefill and decode are held where they compute the same function:
+    capacity depends on the token count (1,024 tokens in prefill, 8 in
+    decode), so sequences whose prefill dropped an assignment are left
+    out (the reference's semantics), and so are positions where bf16
+    rounding moved a token to another expert in some layer (a near tie
+    in the router, found by an eager decode pass that records its
+    routing).  Both counts are recorded."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import lm
+    from repro_torch.models.config import get_config
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("phi3.5-moe-42b-a6.6b").replace(n_layers=MOE_LAYERS)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"phase7b {cfg.name}, first {MOE_LAYERS} of 32 layers: "
+          f"{n_params} params, {n_bytes} bytes", flush=True)
+
+    def routing_mask(prompts):
+        b, s = prompts.shape
+        with torch.no_grad():
+            pre_routes = []
+            lm.forward(cfg, params, {"tokens": prompts}, routes=pre_routes)
+            caches = lm.init_caches(cfg, b, s)
+            dec = []
+            for t in range(s):
+                routes = []
+                lm.decode_step(cfg, params, caches,
+                               {"tokens": prompts[:, t:t + 1], "index": t},
+                               routes=routes)
+                dec.append(torch.stack([e[:, 0] for e, _ in routes]))
+        dec = torch.stack(dec, dim=2)                    # [L, B, S, K]
+        pre = torch.stack([e for e, _ in pre_routes])     # [L, B, S, K]
+        dropped = sum((~v).sum(dim=(1, 2)) for _, v in pre_routes)
+        agree = (dec.sort(-1).values == pre.sort(-1).values).all(-1).all(0)
+        clean = dropped == 0
+        info = {"capacity_prefill": moe_capacity(cfg, b * s),
+                "capacity_decode": moe_capacity(cfg, b),
+                "dropped_per_seq": dropped.tolist(),
+                "seqs_without_drops": int(clean.sum()),
+                "routing_differs_at": int((~agree).sum()),
+                "routing_differs_at_clean": int((~agree & clean[:, None])
+                                                .sum())}
+        print(f"phase7b routing: prefill capacity {info['capacity_prefill']}"
+              f" a expert ({b * s} tokens), decode {info['capacity_decode']};"
+              f" dropped assignments per sequence {info['dropped_per_seq']};"
+              f" routing differs from decode at {info['routing_differs_at']}"
+              f" of {b * s} positions", flush=True)
+        return clean[:, None] & agree, info
+
+    def flash_launches(rec, logits):
+        rec["prefill_step_routes"] = _lib.route_launches()["flash_attention"]
+        check(rec["prefill_step_routes"] == {"tc": cfg.n_layers, "fma": 0},
+              f"phase7b prefill flash routes {rec['prefill_step_routes']}, "
+              f"want all {cfg.n_layers} on tc")
+
+    rec = serve_cell(torch, dev, workdir, "phase7b", cfg, params,
+                     batch=MOE_BATCH, prompt=MOE_PROMPT, gen=MOE_GEN,
+                     chunk_bytes=SERVE_CHUNK, flavors=(1, 2),
+                     path_kernels=MOE_PATH_KERNELS,
+                     compare_mask=routing_mask, after_prefill=flash_launches)
+    rec["params"], rec["param_bytes"] = n_params, n_bytes
+    return rec
+
+
+def moe_capacity(cfg, n_tokens: int) -> int:
+    from repro_torch.models.moe import capacity
+    return capacity(n_tokens, cfg.moe)
+
+
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port on one card.")
+    ap.add_argument("--only", type=lambda v: v.split(","), default=[],
+                    help=f"run only these phases, comma-separated, of "
+                         f"{', '.join(TIMED_PHASES)}")
+    ap.add_argument("--root", type=lambda v: Path(v).resolve(), default=ROOT,
+                    help="the tree whose chip_smoke.py and src/ --only runs")
+    args = ap.parse_args(argv)
+    bad = [p for p in args.only if p not in TIMED_PHASES]
+    if bad:
+        ap.error(f"--only takes {', '.join(TIMED_PHASES)}, not {bad}")
+    return args
+
+
+def only_phases(torch, phases, root: Path) -> int:
+    """Run ``phases`` alone, from the ``chip_smoke.py`` under ``root``
+    (its ``src/`` is first on the path), and print each one's wall times
+    as one line: ``timed <phase> <root> {...}``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke_timed",
+                                                  root / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    from repro_torch.kernels import _lib
+    _lib.load_all()
+    dev = torch.device("cuda")
+    print(f"card: {nvidia_smi_line()}", flush=True)
+    for name in phases:
+        workdir = Path(tempfile.mkdtemp(prefix=f"kishu_{name}_"))
+        try:
+            rec = getattr(mod, name)(torch, dev, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        times = {k: v for k, v in rec.items()
+                 if k.endswith("_s") and isinstance(v, (int, float))}
+        print(f"timed {name} {root} {json.dumps(times)}", flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1781,12 +2055,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    src = ROOT / "src"
+    args = parse_args(sys.argv[1:])
+    src = args.root / "src"
     if not (src / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: no repro_torch package under {src}; run it from "
               f"the repository root", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    if args.only:
+        return only_phases(torch, args.only, args.root)
     from repro_torch.kernels import _lib
 
     dev = torch.device("cuda")
@@ -1855,19 +2132,32 @@ def main() -> int:
                                          "cli phase6")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    for phase, fn in (("phase7", phase7), ("phase7b", phase7b)):
+        torch.cuda.empty_cache()
+        workdir = Path(tempfile.mkdtemp(prefix=f"kishu_smoke_{phase}_"))
+        try:
+            t0 = time.perf_counter()
+            record[phase] = fn(torch, dev, workdir)
+            record[f"{phase}_s"] = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
     # launches: each kernel's count on the path that first needed it —
     # Phase 2 (commit -> checkout) for the four, Phase 4 (trainer) for
-    # block_diff, Phase 5 (serving) for flash_attention
+    # block_diff, Phase 5 (serving) for flash_attention — and, beside it,
+    # its count on each path's own run
     first_path = {"block_diff": "phase4", "flash_attention": "phase5"}
     for row in kernels:
         phase = first_path.get(row["name"], "phase2")
         row["launches"] = record[phase]["launches"][row["name"]]
+        row["launches_by_path"] = {p: record[p]["launches"][row["name"]]
+                                   for p in PATHS}
     record["kernels"] = kernels
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in kernels]}), flush=True)
     print(f"card: {nvidia_smi_line()}", flush=True)

@@ -21,6 +21,17 @@ intermediate state alive.  A memoized version missing some requested names
 state index instead of re-restoring every dependency and re-running the
 command — a deterministic replay cannot produce names it didn't produce the
 first time.
+
+A replay of ``__attach__`` is checked against the commit.  An attach
+re-inserts the objects the caller handed in, and unlike the JAX package's
+arrays, tensors and numpy arrays can have been changed in place since.  So
+every array value of the requested co-variable is hashed again at the
+commit's chunk size (the ``chunk_hash`` kernel on a card, the plain hash on
+the CPU) and compared with the manifest's detection hashes (or, where a
+manifest has none, its chunk keys); a difference raises
+:class:`RestoreError` naming the co-variable and the first differing
+chunk.  A value that is not an array cannot be checked this way and is
+restored as before.
 """
 from __future__ import annotations
 
@@ -31,9 +42,13 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import hashing
+from repro_torch.core.chunkstore import chunk_keys
 from repro_torch.core.covariable import CovKey
 from repro_torch.core.graph import CheckpointGraph, parse_key
 from repro_torch.core.namespace import Namespace, TrackedNamespace
+from repro_torch.core.serialize import (base_of, dtype_name, leaf_to_bytes,
+                                        tensor_to_bytes)
 
 DEFAULT_MEMO_BYTES = 256 << 20
 
@@ -66,6 +81,69 @@ def _value_nbytes(val: Any) -> int:
 
 def _ns_nbytes(ns: Namespace) -> int:
     return sum(_value_nbytes(ns[name]) for name in ns.names())
+
+
+def _base_hashes(base: Any, chunk_bytes: int) -> np.ndarray:
+    """Detection hashes of an array base, as ``RecordBuilder`` takes them:
+    where a tensor lies (the kernel on a card), else on the host."""
+    if isinstance(base, torch.Tensor):
+        h = hashing.chunk_hashes_device(base, chunk_bytes)
+        if h is not None:
+            return h
+        return hashing.chunk_hashes_np(tensor_to_bytes(base), chunk_bytes)
+    arr = np.ascontiguousarray(base)
+    return hashing.chunk_hashes_np(
+        arr.reshape(-1).view(np.uint8) if arr.ndim else arr.tobytes(),
+        chunk_bytes)
+
+
+def check_against_manifest(key: CovKey, version: str, manifest: Optional[dict],
+                           values: Dict[str, Any]) -> None:
+    """Raise :class:`RestoreError` unless the array base of ``values``
+    (the co-variable ``key`` as a replay produced it) holds the bytes the
+    commit's manifest recorded: its dtype, shape and size, then its
+    detection hashes at the commit's chunk size, or its chunk keys where
+    the manifest has no hashes.  Values that are not arrays, and manifests
+    of unserializable co-variables, pass unchecked."""
+    if not manifest or manifest.get("unserializable") \
+            or not manifest.get("members"):
+        return
+    val = values.get(manifest["members"][0]["name"])
+    if not isinstance(val, (np.ndarray, torch.Tensor)):
+        return
+    base = base_of(val)
+    doc = manifest["base"]
+    meta = doc.get("meta", {})
+    got_meta = (dtype_name(base.dtype), list(base.shape))
+    if got_meta != (meta.get("dtype"), meta.get("shape")) \
+            or base.nbytes != doc["nbytes"]:
+        raise RestoreError(
+            f"replayed {key} @ {version} is {got_meta}, {base.nbytes} "
+            f"bytes; the commit recorded {meta.get('dtype')} "
+            f"{meta.get('shape')}, {doc['nbytes']} bytes")
+    chunks = doc.get("chunks", [])
+    want = doc.get("det_hashes") or []
+    if want:
+        # a single chunk hashes alike at any chunk size that covers it
+        cb = int(chunks[0]["n"]) if len(chunks) > 1 \
+            else 1 << max(2, (max(base.nbytes, 1) - 1).bit_length())
+        got = hashing.hashes_hex(_base_hashes(base, cb))
+    else:
+        blob, _ = leaf_to_bytes(base)
+        view, lo, bufs = memoryview(blob), 0, []
+        for c in chunks:
+            bufs.append(view[lo:lo + int(c["n"])])
+            lo += int(c["n"])
+        got, want = chunk_keys(bufs), [c["key"] for c in chunks]
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            raise RestoreError(
+                f"replayed {key} @ {version} differs from the commit at "
+                f"chunk {i} of {len(want)}: a value handed to the attach "
+                f"was changed in place since")
+    if len(got) != len(want):
+        raise RestoreError(f"replayed {key} @ {version} has {len(got)} "
+                           f"chunks; the commit recorded {len(want)}")
 
 
 def _replay_copy(val: Any) -> Any:
@@ -156,8 +234,7 @@ class DataRestorer:
                 self._top_up(node, temp, missing, stats, _depth)
                 missing = [n for n in key if n not in temp]
             if not missing:
-                self._count(key, version, stats)
-                return {n: temp[n] for n in key}
+                return self._extract(key, version, cmd, temp, stats)
             raise RestoreError(
                 f"replay of {cmd['name']} did not produce {missing}")
 
@@ -194,8 +271,19 @@ class DataRestorer:
         if missing:
             raise RestoreError(
                 f"replay of {cmd['name']} did not produce {missing}")
+        return self._extract(key, version, cmd, temp, stats)
+
+    def _extract(self, key: CovKey, version: str, cmd: dict,
+                 temp: Namespace, stats) -> Dict[str, Any]:
+        """The requested co-variable out of a replayed namespace; a replayed
+        ``__attach__`` is first checked against the commit."""
+        values = {n: temp[n] for n in key}
+        if cmd["name"] == "__attach__":
+            check_against_manifest(key, version,
+                                   self.graph.manifest_of(key, version),
+                                   values)
         self._count(key, version, stats)
-        return {n: temp[n] for n in key}
+        return values
 
     def _top_up(self, node, temp: Namespace, missing: List[str], stats,
                 _depth: int) -> None:

@@ -1,18 +1,20 @@
-"""Batched serving launcher: prefill + greedy decode with KV caches, on a
-CUDA card (or the CPU, when asked).
+"""Batched serving launcher: prefill + greedy decode with KV/SSM caches,
+on a CUDA card (or the CPU, when asked).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --batch 8 --prompt-len 512 --gen 64
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu
 
-The flags are those of ``python -m repro.launch.serve``, plus ``--device``.
-As there, the prompt is teacher-forced through the decode loop (one token
-per step fills the caches), then ``--gen`` tokens are generated greedily,
-and the same line is printed.  The JAX launcher's default architecture,
-``mamba2-780m``, is not ported (SSM decode caches), so the default here
-is ``smollm-360m``; only the dense architectures are registered
-(``smollm-360m``, ``qwen3-1.7b``).  Weights are random, drawn from seed 0;
+The flags are those of ``python -m repro.launch.serve``, plus ``--device``;
+the default architecture is the JAX launcher's, ``mamba2-780m``.  As
+there, the prompt is teacher-forced through the decode loop (one token
+per step fills the caches ``lm.init_caches`` built: KV for attention
+layers, conv and state for SSM layers), then ``--gen`` tokens are
+generated greedily, and the same line is printed.  The registered
+architectures are ``mamba2-780m``, ``smollm-360m``, ``qwen3-1.7b``,
+``phi3.5-moe-42b-a6.6b`` and ``jamba-1.5-large-398b`` (the last two fit
+one card only ``--reduced``).  Weights are random, drawn from seed 0;
 prompts from seed 1.
 """
 from __future__ import annotations
@@ -33,7 +35,7 @@ from repro_torch.train import step as step_lib
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="mamba2-780m")
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-sized config of the same family")
     ap.add_argument("--batch", type=int, default=4)

@@ -9,8 +9,9 @@ CUDA card (or the CPU, when asked).
 The flags are those of ``python -m repro.launch.train``, plus ``--device``.
 The launcher runs the production loop: phases as commands, incremental
 checkpoints every phase, automatic rollback if a phase diverges (loss
-spike), and resume-from-store on restart.  Only the dense architectures
-are registered (``smollm-360m``, ``qwen3-1.7b``).
+spike), and resume-from-store on restart.  The registered architectures
+are ``smollm-360m``, ``qwen3-1.7b``, ``mamba2-780m``,
+``phi3.5-moe-42b-a6.6b`` and ``jamba-1.5-large-398b``.
 """
 from __future__ import annotations
 

@@ -2,9 +2,11 @@
 
 One frozen dataclass describes every architecture; the LM in ``lm.py``
 interprets it.  Configs are pure data.  The port's ``lm.py`` runs the dense
-family (GQA, optional qk-norm, SwiGLU, tied or untied unembed) and raises
-``NotImplementedError`` for the rest; ``configs`` registers only the
-architectures the port can run.
+family (GQA, optional qk-norm, SwiGLU, tied or untied unembed), Mamba-2/SSD
+layers, MoE feed-forwards and hybrid stacks of them, with RoPE or
+sinusoidal positions; it raises ``NotImplementedError`` for MLA, enc-dec,
+M-RoPE, frontends and MTP.  ``configs`` registers only the architectures
+the port can run.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
-"""Core neural layers of the dense decoder: RMSNorm, RoPE, GQA attention
-(full sequence and one-token decode against a KV cache) and the gated MLP,
-as plain functions on tensors (the port of the JAX package's
-``models/layers.py``, dense subset).  Parameters are nested dicts of
+"""Core neural layers: RMSNorm, RoPE, GQA attention (full sequence and
+one-token decode against a KV cache) and the gated MLP, as plain functions
+on tensors (the port of the JAX package's ``models/layers.py``; MLA, M-RoPE
+and cross-attention are not ported yet).  Parameters are nested dicts of
 tensors with the JAX package's names, shapes and layouts.
 
 Conventions
@@ -41,7 +41,8 @@ def einsum_f32(eq: str, *ops: torch.Tensor) -> torch.Tensor:
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP Queue A, "
-        f"remaining workloads: the port runs the dense GQA decoder only)")
+        f"remaining workloads: MLA with MTP, enc-dec, M-RoPE and the "
+        f"vision frontend)")
 
 
 # ---------------------------------------------------------------------------

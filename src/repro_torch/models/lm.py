@@ -1,5 +1,5 @@
-"""The dense decoder LM over stacked per-unit parameters (the port of the
-JAX package's ``models/lm.py``, dense subset).
+"""The decoder LM over stacked per-unit parameters (the port of the JAX
+package's ``models/lm.py``).
 
 Layers are grouped into *stages* of repeating units as in the JAX package,
 and each stage's parameters are stacked along a leading ``[n_units]`` axis
@@ -8,27 +8,32 @@ same tensors.  Where the JAX package scans over units, the port runs a
 Python loop over ``unbind(0)`` of each stacked leaf (one stacking op in the
 backward pass).
 
-Only the dense family runs: standard RoPE, GQA, optional per-head qk-norm,
-SwiGLU MLP, RMSNorm and the tied or untied unembed.  MLA, MoE, Mamba/SSD,
-hybrid stacks, enc-dec, M-RoPE, frontends and MTP raise
+What runs: GQA attention (standard RoPE, optional per-head qk-norm) and
+Mamba-2/SSD layers (``models/mamba.py``), each followed by a SwiGLU MLP, an
+MoE feed-forward (``models/moe.py``) or nothing, in any periodic stack the
+config describes (dense, ``ssm``, ``moe`` and ``hybrid`` families), with
+RoPE or sinusoidal positions (``rope_type="none"``), RMSNorm and the tied
+or untied unembed.  MLA, enc-dec, M-RoPE, frontends and MTP raise
 ``NotImplementedError``.
 
 Serving: :func:`forward` with ``training=False`` (the default, as in the
 JAX package) is the prefill, whose attention goes through the flash
 kernel; :func:`init_caches` and :func:`decode_step` run one-token decode
-against KV caches stacked ``[n_units, ...]`` per stage, exactly as the JAX
-package's ``vmap`` lays them out, and updated in place.
+against KV and SSM caches stacked ``[n_units, ...]`` per stage, exactly as
+the JAX package's ``vmap`` lays them out, and updated in place.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.serialize import torch_dtype
 from repro_torch.core.session import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ArchConfig
 
 
@@ -89,15 +94,12 @@ def build_stages(cfg: ArchConfig, *, decoder: bool = True) -> List[StageSpec]:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for any feature of ``cfg`` outside the ported dense family."""
+    """Raise for any feature of ``cfg`` the port does not run yet."""
     for present, what in (
             (cfg.mla is not None, "MLA attention"),
-            (cfg.moe is not None, "MoE"),
-            (cfg.family in ("ssm", "hybrid") or cfg.ssm is not None
-             or cfg.hybrid_pattern, "Mamba/SSD and hybrid stacks"),
             (cfg.enc_dec, "enc-dec / cross-attention"),
-            (cfg.rope_type != "standard",
-             f"rope_type={cfg.rope_type!r} (M-RoPE, sinusoidal)"),
+            (cfg.rope_type not in ("standard", "none"),
+             f"rope_type={cfg.rope_type!r} (M-RoPE)"),
             (cfg.frontend is not None, f"the {cfg.frontend} frontend"),
             (cfg.mtp, "multi-token prediction")):
         if present:
@@ -112,11 +114,17 @@ def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
                 dtype: torch.dtype, lead=()) -> dict:
     d = cfg.d_model
     p: Dict[str, Any] = {"norm1": layers.rmsnorm_init(d, dtype, gen.device,
-                                                      lead),
-                         "attn": layers.gqa_init(gen, cfg, dtype, lead)}
+                                                      lead)}
+    if spec.kind == "attn":
+        p["attn"] = layers.gqa_init(gen, cfg, dtype, lead)
+    else:
+        p["ssm"] = mamba.ssm_init(gen, cfg, dtype, lead)
     if spec.ffn == "dense":
         p["norm2"] = layers.rmsnorm_init(d, dtype, gen.device, lead)
         p["mlp"] = layers.mlp_init(gen, d, cfg.d_ff, dtype, lead)
+    elif spec.ffn == "moe":
+        p["norm2"] = layers.rmsnorm_init(d, dtype, gen.device, lead)
+        p["moe"] = moe_lib.moe_init(gen, cfg, dtype, lead)
     return p
 
 
@@ -165,17 +173,56 @@ def _positions_of(batch: dict, cfg: ArchConfig, seq: int, bsz: int,
     return pos.expand(bsz, seq)
 
 
+def _sinusoidal_embed(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal positional embedding (float32). positions [B,S] ->
+    [B,S,d]; computed on the positions' device, so a captured decode step
+    reads its index from the card."""
+    half = d // 2
+    inv = torch.exp(torch.arange(half, dtype=torch.float32,
+                                 device=positions.device)
+                    * -(math.log(10_000.0) / max(half - 1, 1)))
+    ang = positions.float()[..., None] * inv
+    out = torch.zeros((*positions.shape, d), dtype=torch.float32,
+                      device=positions.device)
+    out[..., 0::2] = torch.sin(ang)
+    out[..., 1::2] = torch.cos(ang)
+    return out
+
+
+def _add_positions(cfg: ArchConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """``rope_type="none"``: the sinusoidal embedding added to the token
+    embedding in float32; RoPE models take positions in attention."""
+    if cfg.rope_type != "none":
+        return x
+    return (x.float() + _sinusoidal_embed(positions, x.shape[-1])).to(x.dtype)
+
+
 def _apply_layer(p: dict, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor,
-                 positions: torch.Tensor, *, training: bool = False
-                 ) -> torch.Tensor:
-    """Full-sequence layer: attention then the gated MLP, each residual."""
+                 positions: torch.Tensor, *, training: bool = False,
+                 routes: Optional[List[moe_lib.Route]] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence layer: attention or SSM, then the gated MLP or the MoE
+    feed-forward, each residual.  Returns (x, the MoE aux loss: a float32
+    zero for other layers); ``routes`` collects an MoE layer's routing
+    (:func:`moe.moe_forward`)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + layers.gqa_forward(p["attn"], cfg, h, positions,
-                               training=training)
+    if spec.kind == "attn":
+        x = x + layers.gqa_forward(p["attn"], cfg, h, positions,
+                                   training=training)
+    else:
+        x = x + mamba.ssm_forward(p["ssm"], cfg, h)
     if spec.ffn == "dense":
         h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
         x = x + layers.mlp_forward(p["mlp"], h)
-    return x
+    elif spec.ffn == "moe":
+        h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        y = moe_lib.moe_forward(p["moe"], cfg, h, routes)
+        aux = moe_lib.aux_load_balance_loss(
+            p["moe"]["router"], h.reshape(-1, h.shape[-1]), cfg.moe)
+        x = x + y
+    return x, aux
 
 
 def _unstack(tree: Any, n: int) -> List[Any]:
@@ -191,14 +238,21 @@ def _unstack(tree: Any, n: int) -> List[Any]:
 
 def _run_stages(stages_params: dict, stage_specs: List[StageSpec],
                 cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
-                *, training: bool = False) -> torch.Tensor:
+                *, training: bool = False,
+                routes: Optional[List[moe_lib.Route]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All stages in order.  Returns (x, the MoE aux loss summed over
+    layers)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, stage in enumerate(stage_specs):
         units = _unstack(stages_params[f"stage_{i}"], stage.n_units)
         for unit_params in units:
             for j, spec in enumerate(stage.unit):
-                x = _apply_layer(unit_params[f"sub_{j}"], cfg, spec, x,
-                                 positions, training=training)
-    return x
+                x, aux = _apply_layer(unit_params[f"sub_{j}"], cfg, spec, x,
+                                      positions, training=training,
+                                      routes=routes)
+                aux_total = aux_total + aux
+    return x, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -212,9 +266,12 @@ def embed_inputs(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *,
-            training: bool = False, return_aux: bool = False):
+            training: bool = False, return_aux: bool = False,
+            routes: Optional[List[moe_lib.Route]] = None):
     """Full-sequence forward. Returns float32 logits [B,S,V] (and an aux
-    dict whose ``moe_aux`` is a float32 zero for the dense family).
+    dict: ``moe_aux``, the MoE load-balance loss summed over layers — a
+    float32 zero without MoE layers).  Where ``routes`` is a list, each
+    MoE layer appends its routing to it (:func:`moe.moe_forward`).
 
     ``training=False`` (the prefill) sends attention through the flash
     kernel, which is forward-only; ``training=True`` keeps the plain
@@ -223,13 +280,13 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *,
     x = embed_inputs(cfg, params, batch)
     bsz, seq, _ = x.shape
     positions = _positions_of(batch, cfg, seq, bsz, device=x.device)
-    x = _run_stages(params["stages"], build_stages(cfg), cfg, x, positions,
-                    training=training)
+    x = _add_positions(cfg, x, positions)
+    x, aux = _run_stages(params["stages"], build_stages(cfg), cfg, x,
+                         positions, training=training, routes=routes)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(cfg, params, x)
     if return_aux:
-        return logits, {"moe_aux": torch.zeros((), dtype=torch.float32,
-                                               device=x.device)}
+        return logits, {"moe_aux": aux}
     return logits
 
 
@@ -243,47 +300,59 @@ def unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 # decode (one token against caches)
 # ---------------------------------------------------------------------------
 
-def _init_layer_cache(cfg: ArchConfig, batch: int, seq: int,
-                      dtype: torch.dtype, device, lead=()) -> dict:
-    return {"attn": layers.gqa_cache_init(cfg, batch, seq, dtype, device,
-                                          lead)}
+def _init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
+                      seq: int, dtype: torch.dtype, device, lead=()) -> dict:
+    if spec.kind == "attn":
+        return {"attn": layers.gqa_cache_init(cfg, batch, seq, dtype, device,
+                                              lead)}
+    return {"ssm": mamba.ssm_cache_init(cfg, batch, dtype, device, lead)}
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq: int,
                 dtype: torch.dtype | None = None, device=None) -> dict:
     """Cache tree: per stage, leaves stacked along ``n_units`` (the JAX
-    package's names, shapes and dtypes; ``index`` int32 ``[n_units]``), on
-    ``device`` (``cuda`` unless the caller names another).  The MLA, SSM
-    and enc-dec (``enc_out``) caches raise with the rest of their
-    families (:func:`check_supported`)."""
+    package's names, shapes and dtypes: KV with an int32 ``index`` for
+    attention layers, ``conv`` and float32 ``state`` for SSM layers), on
+    ``device`` (``cuda`` unless the caller names another).  The MLA and
+    enc-dec (``enc_out``) caches raise with the rest of their families
+    (:func:`check_supported`)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
     return {"stages": {
         f"stage_{i}": {f"sub_{j}": _init_layer_cache(
-            cfg, batch, seq, dtype, device, lead=(stage.n_units,))
-            for j in range(len(stage.unit))}
+            cfg, spec, batch, seq, dtype, device, lead=(stage.n_units,))
+            for j, spec in enumerate(stage.unit)}
         for i, stage in enumerate(build_stages(cfg))}}
 
 
 def _decode_layer(p: dict, c: dict, cfg: ArchConfig, spec: LayerSpec,
-                  x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+                  x: torch.Tensor, positions: torch.Tensor,
+                  routes: Optional[List[moe_lib.Route]] = None) -> torch.Tensor:
     """One layer of one-token decode; ``c`` (the layer's cache) is updated
     in place."""
     h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    y, _ = layers.gqa_decode(p["attn"], cfg, h, c["attn"], positions)
+    if spec.kind == "attn":
+        y, _ = layers.gqa_decode(p["attn"], cfg, h, c["attn"], positions)
+    else:
+        y, _ = mamba.ssm_decode(p["ssm"], cfg, h, c["ssm"])
     x = x + y
     if spec.ffn == "dense":
         h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
         x = x + layers.mlp_forward(p["mlp"], h)
+    elif spec.ffn == "moe":
+        h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        x = x + moe_lib.moe_forward(p["moe"], cfg, h, routes)
     return x
 
 
-def decode_step(cfg: ArchConfig, params: dict, caches: dict, batch: dict
+def decode_step(cfg: ArchConfig, params: dict, caches: dict, batch: dict,
+                *, routes: Optional[List[moe_lib.Route]] = None
                 ) -> Tuple[torch.Tensor, dict]:
     """One-token decode. batch: {"tokens": [B,1], "index": the cache fill
     (an int or a 0-d int tensor)}.  Returns (float32 logits [B,1,V],
-    caches): the caches are the same tensors, updated in place."""
+    caches): the caches are the same tensors, updated in place.  Where
+    ``routes`` is a list, each MoE layer appends its routing to it."""
     check_supported(cfg)
     x = embed_inputs(cfg, params, batch)
     bsz = x.shape[0]
@@ -293,12 +362,13 @@ def decode_step(cfg: ArchConfig, params: dict, caches: dict, batch: dict
         if isinstance(index, torch.Tensor) else \
         torch.full((), int(index), dtype=torch.int32, device=x.device)
     positions = index.reshape(1, 1).expand(bsz, 1)
+    x = _add_positions(cfg, x, positions)
     for i, stage in enumerate(build_stages(cfg)):
         units_p = _unstack(params["stages"][f"stage_{i}"], stage.n_units)
         units_c = _unstack(caches["stages"][f"stage_{i}"], stage.n_units)
         for unit_p, unit_c in zip(units_p, units_c):
             for j, spec in enumerate(stage.unit):
                 x = _decode_layer(unit_p[f"sub_{j}"], unit_c[f"sub_{j}"],
-                                  cfg, spec, x, positions)
+                                  cfg, spec, x, positions, routes)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(cfg, params, x), caches

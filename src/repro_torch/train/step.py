@@ -67,11 +67,15 @@ def make_loss_fn(cfg: ArchConfig, *, moe_aux_coef: float = 0.01):
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
                     microbatches: int = 1, moe_aux_coef: float = 0.01):
     """Returns ``train_step(state, batch, lr=None) -> (state, metrics)``;
-    the returned state is ``state``, updated in place."""
-    if microbatches != 1:
-        raise NotImplementedError(
-            "microbatches > 1 (gradient accumulation) is not ported to "
-            "repro_torch yet (ROADMAP Queue A, remaining workloads)")
+    the returned state is ``state``, updated in place.
+
+    ``microbatches > 1`` accumulates gradients as the JAX package does: the
+    batch splits on its leading axis (which it must divide), float32
+    gradients are summed over the microbatches in order, and the gradients,
+    ``total`` and the aux metrics are scaled by ``1/microbatches`` before
+    the one AdamW update."""
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     loss_fn = make_loss_fn(cfg, moe_aux_coef=moe_aux_coef)
 
     def grads_of(params, batch):
@@ -83,16 +87,38 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
             flat = tree_leaves(leaves)
             gflat = torch.autograd.grad(total, flat)
         by_id = {id(x): g for x, g in zip(flat, gflat)}
-        return total.detach(), aux, tree_map(lambda x: by_id[id(x)], leaves)
+        return total.detach(), {k: v.detach() for k, v in aux.items()}, \
+            tree_map(lambda x: by_id[id(x)], leaves)
+
+    def accumulated(params, batch):
+        if microbatches == 1:
+            return grads_of(params, batch)
+        b = next(iter(batch.values())).shape[0]
+        if any(v.shape[0] != b for v in batch.values()) \
+                or b % microbatches:
+            raise ValueError(f"batch of {b} does not split into "
+                             f"{microbatches} microbatches")
+        parts = {k: v.chunk(microbatches) for k, v in batch.items()}
+        total = aux = gacc = None
+        for i in range(microbatches):
+            tot, ax, g = grads_of(params, {k: v[i] for k, v in parts.items()})
+            if gacc is None:
+                total, aux, gacc = tot, ax, tree_map(lambda x: x.float(), g)
+            else:
+                total = total + tot
+                aux = {k: aux[k] + ax[k] for k in aux}
+                gacc = tree_map(lambda a, x: a + x.float(), gacc, g)
+        scale = 1.0 / microbatches
+        return total * scale, {k: v * scale for k, v in aux.items()}, \
+            tree_map(lambda g: g * scale, gacc)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    lr: Optional[float] = None
                    ) -> Tuple[TrainState, Dict[str, Any]]:
-        total, aux, grads = grads_of(state["params"], batch)
+        total, aux, grads = accumulated(state["params"], batch)
         om = adamw_update(grads, state["opt"], state["params"], opt_cfg, lr)
         state["step"].add_(1)
-        metrics = {"total_loss": total,
-                   **{k: v.detach() for k, v in aux.items()}, **om,
+        metrics = {"total_loss": total, **aux, **om,
                    "step": state["step"].clone()}
         return state, metrics
 

@@ -969,6 +969,115 @@ def test_graphed_decode_failures_raise(dev, monkeypatch):
     assert nxt.is_cuda and step.captures == 1
 
 
+NEW_FAMILIES = ["mamba2-780m", "phi3.5-moe-42b-a6.6b",
+                "jamba-1.5-large-398b"]
+
+
+def _family_setup(dev, arch, dtype="bfloat16"):
+    from repro_torch.models import lm
+    from repro_torch.models.config import get_config
+    from repro_torch.models.testing import reduced
+    cfg = reduced(get_config(arch)).replace(dtype=dtype)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    return cfg, params
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_graphed_decode_equals_eager_ssm_moe(dev, arch, dtype):
+    """SSM, MoE and hybrid decode through the CUDA graph and the eager
+    step, 40 steps: the same tokens, logits and cache bytes at every step
+    from one capture, and every cache leaf keeps its storage (SSM state and
+    conv written in place)."""
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import GraphedDecodeStep
+    cfg, params = _family_setup(dev, arch, dtype)
+    b, prompt, steps = 3, 8, 40
+    toks = torch.randint(0, cfg.vocab_size, (b, prompt),
+                         generator=torch.Generator().manual_seed(6),
+                         dtype=torch.int32).to(dev)
+    graphed = GraphedDecodeStep(cfg)
+    ce = lm.init_caches(cfg, b, steps + 1)
+    cg = lm.init_caches(cfg, b, steps + 1)
+    ptrs = [t.data_ptr() for t in tree_leaves(cg)]
+    tok = toks[:, :1]
+    for t in range(steps):
+        with torch.no_grad():
+            want, _ = lm.decode_step(cfg, params, ce,
+                                     {"tokens": tok, "index": t})
+        lg, nxt, _ = graphed.with_logits(params, cg,
+                                         {"tokens": tok, "index": t})
+        assert torch.equal(lg, want), t
+        assert torch.equal(
+            nxt, want[..., :cfg.vocab_size].argmax(-1).to(torch.int32)), t
+        assert _leaves_equal(cg, ce), t
+        tok = toks[:, t + 1:t + 2] if t + 1 < prompt else nxt
+    assert graphed.captures == 1
+    assert [t.data_ptr() for t in tree_leaves(cg)] == ptrs
+    if cfg.ssm is not None:
+        states = [t for t in tree_leaves(cg) if t.dtype == torch.float32
+                  and t.ndim == 5]
+        assert states and all(bool(t.abs().sum() > 0) for t in states)
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_decode_step_makes_no_host_sync(dev, arch):
+    """After a warm-up step, decode steps of the SSM, MoE and hybrid
+    models run with CUDA sync debugging set to raise: the MoE dispatch
+    (sort, counts by scatter_add_) and the in-place SSM update read
+    nothing back to the host."""
+    from repro_torch.models import lm
+    cfg, params = _family_setup(dev, arch)
+    caches = lm.init_caches(cfg, 2, 8)
+    tok = torch.ones((2, 1), dtype=torch.int32, device=dev)
+    index = torch.zeros((), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        lm.decode_step(cfg, params, caches, {"tokens": tok, "index": index})
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                index.add_(1)
+                logits, _ = lm.decode_step(cfg, params, caches,
+                                           {"tokens": tok, "index": index})
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_moe_layer_captures_and_drops_as_eager(dev):
+    """The MoE layer alone, with drops forced (capacity factor 0.25),
+    captured in a CUDA graph: its replay equals the eager call bit for
+    bit, and its routing and drops are the CPU's."""
+    from repro_torch.models import moe
+    cfg, params = _family_setup(dev, "phi3.5-moe-42b-a6.6b", "float32")
+    import dataclasses
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.25))
+    p = {k: v[0] for k, v in
+         params["stages"]["stage_0"]["sub_0"]["moe"].items()}
+    x = torch.randn((4, 16, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    routes, cpu_routes = [], []
+    want = moe.moe_forward(p, cfg, x, routes)
+    moe.moe_forward({k: v.cpu() for k, v in p.items()}, cfg, x.cpu(),
+                    cpu_routes)
+    (experts, kept), (cpu_experts, cpu_kept) = routes[0], cpu_routes[0]
+    assert torch.equal(experts.cpu(), cpu_experts)
+    assert torch.equal(kept.cpu(), cpu_kept) and not bool(cpu_kept.all())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe.moe_forward(p, cfg, x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = moe.moe_forward(p, cfg, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
 def test_train_phase_replays_exactly_on_the_card(dev):
     """A train phase run again from its parent commit reproduces the
     committed state bit for bit (block_diff), as Kishu's fallback
@@ -1249,3 +1358,56 @@ def test_fabric_checkout_after_replica_wipe_on_the_card(dev, tmp_path):
     s.close()
     assert scrub(open_store(uri), repair=True).remaining == 0
     assert scrub(open_store(uri)).problems == 0
+
+
+@pytest.mark.parametrize("changed", ["none", "small", "w", "emb"])
+def test_replayed_attach_is_checked_on_the_card(dev, tmp_path, changed):
+    """CUDA tensors attached — one smaller than a chunk, two spanning
+    several — then changed (in place for ``changed``, by rebinding for the
+    others) and every chunk lost.  The fallback replays the attach and the
+    chunk_hash kernel holds the replayed bytes against the commit: an
+    unchanged attach restores exactly, one changed in place raises."""
+    import os
+    import shutil
+    from repro_torch.core import KishuSession, open_store
+    from repro_torch.core.restore import RestoreError, check_against_manifest
+    from repro_torch.kernels import _lib
+    g = torch.Generator(device="cpu").manual_seed(5)
+    vals = {"small": torch.randn(37, generator=g).to(dev),      # 148 B
+            "w": torch.randn(300_001, generator=g).to(dev),     # 293 chunks
+            "emb": torch.randn(64, 1000, generator=g)
+            .to(torch.bfloat16).to(dev)}                        # 32 chunks
+    want = {n: v.clone() for n, v in vals.items()}
+    s = KishuSession(open_store(f"dir://{tmp_path}/cas"), chunk_bytes=4096,
+                     cache_bytes=0, device=dev, plan_mode="fetch")
+
+    def bump(ns):
+        for n in vals:
+            if n == changed:
+                ns[n].add_(1.0)
+            else:
+                ns[n] = ns[n] + 1.0
+    s.register("bump", bump)
+    c0 = s.init_state(dict(vals))
+    s.run("bump")
+    n_chunks = {n: len(s.graph.manifest_of((n,), c0)["base"]["chunks"])
+                for n in vals}
+    assert n_chunks == {"small": 1, "w": 293, "emb": 32}
+    shutil.rmtree(tmp_path / "cas" / "chunks")
+    os.makedirs(tmp_path / "cas" / "chunks")
+    if changed == "none":
+        assert s.checkout(c0).covs_recomputed == 3
+        for n in vals:
+            assert s.ns[n].is_cuda and torch.equal(s.ns[n], want[n]), n
+        for n in vals:                       # the kernel hashes the check
+            before = _lib.launches()["chunk_hash"]
+            check_against_manifest((n,), c0, s.graph.manifest_of((n,), c0),
+                                   {n: want[n]})
+            assert _lib.launches()["chunk_hash"] == before + 1, n
+    else:
+        with pytest.raises(RestoreError,
+                           match=rf"\('{changed}',\) @ .* differs from the "
+                                 rf"commit at chunk 0 of "
+                                 rf"{n_chunks[changed]}"):
+            s.checkout(c0)
+    s.close()

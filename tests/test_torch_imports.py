@@ -56,6 +56,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.core.planner, repro_torch.core.fabric\n"
             "import repro_torch.core.baselines\n"
             "import repro_torch.launch.kishu_cli, repro_torch.launch.kishud\n"
+            "import repro_torch.models.mamba, repro_torch.models.moe\n"
+            "import repro_torch.configs\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
             "       or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
@@ -65,13 +67,16 @@ def test_import_pulls_in_neither_jax_nor_repro():
 
 
 NEW_MODULES = ("core/planner.py", "core/fabric.py", "core/baselines.py",
-               "launch/kishu_cli.py", "launch/kishud.py")
+               "launch/kishu_cli.py", "launch/kishud.py", "models/mamba.py",
+               "models/moe.py", "configs/mamba2_780m.py",
+               "configs/phi35_moe_42b.py", "configs/jamba_1p5_large_398b.py")
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)
 def test_kishu_modules_exist_and_stand_alone(rel):
-    """The planner, the fabric, the baselines, the CLI and kishud: each
-    has its counterpart in the port, importing neither jax nor repro."""
+    """The planner, the fabric, the baselines, the CLI, kishud, the SSM and
+    MoE layers and their configs: each has its counterpart in the port,
+    importing neither jax nor repro."""
     path = PORT / rel
     assert path.is_file() and (ROOT / "src" / "repro" / rel).is_file()
     assert _bad_imports(path) == []

@@ -1,5 +1,8 @@
-"""The port's dense decoder held against the JAX package's, function by
-function, on reduced ``smollm-360m`` and reduced ``qwen3-1.7b`` (qk-norm).
+"""The port's decoder held against the JAX package's, function by
+function, on reduced ``smollm-360m``, reduced ``qwen3-1.7b`` (qk-norm) and,
+for configs, stages, init and the whole model, reduced ``mamba2-780m``
+(SSD, sinusoidal positions), ``phi3.5-moe-42b-a6.6b`` (MoE) and
+``jamba-1.5-large-398b`` (attention + SSD + MoE).
 
 Parameters come from the JAX package's own initialiser and cross as raw
 bytes (``interop.to_torch``); inputs are made from numpy seeds.  float32
@@ -34,6 +37,8 @@ from repro_torch.models.config import get_config as tget  # noqa: E402
 from repro_torch.models.testing import reduced as treduced  # noqa: E402
 
 ARCHS = ["smollm-360m", "qwen3-1.7b"]
+NEW_ARCHS = ["mamba2-780m", "phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b"]
+ALL_ARCHS = ARCHS + NEW_ARCHS
 TOL = dict(atol=1e-5, rtol=1e-4)
 
 
@@ -81,7 +86,7 @@ def _tokens(cfg, b=2, s=12, seed=0):
 # configs and layout
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_configs_are_the_jax_packages(arch):
     for jc, tc in ((jget(arch), tget(arch)), _cfgs(arch)):
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
@@ -96,7 +101,7 @@ def test_smollm_full_size_counts():
     assert cfg.dtype == "bfloat16" and cfg.tie_embeddings
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_stages_match(arch):
     jc, tc = _cfgs(arch)
     for j, t in ((jget(arch), tget(arch)), (jc, tc)):
@@ -109,12 +114,34 @@ def test_stages_match(arch):
             jlm._min_period(jlm.layer_specs(j))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def test_jamba_stage_and_leaf_layout():
+    """Jamba's unit is [attn, ssm x 7] with MoE on every second layer: one
+    stage of eight sub-layers, the JAX package's leaf names under
+    ``stage_0/sub_0..sub_7``."""
+    jc, tc = _cfgs("jamba-1.5-large-398b")
+    (stage,) = tlm.build_stages(tget("jamba-1.5-large-398b"))
+    assert stage.n_units == 9
+    assert [(s.kind, s.ffn) for s in stage.unit] == \
+        [("attn", "dense"), ("ssm", "moe"), ("ssm", "dense"), ("ssm", "moe"),
+         ("ssm", "dense"), ("ssm", "moe"), ("ssm", "dense"), ("ssm", "moe")]
+    tp = _flat(tlm.init_params(tc, torch.Generator().manual_seed(0)))
+    jp = _flat(jax.tree.map(np.asarray, jlm.init_params(jc,
+                                                        jax.random.key(0))))
+    assert sorted(tp) == sorted(jp)
+    assert "stages/stage_0/sub_0/attn/wq" in tp
+    assert "stages/stage_0/sub_7/ssm/in_proj" in tp
+    assert "stages/stage_0/sub_7/moe/w_gate" in tp
+    assert "stages/stage_0/sub_6/mlp/w_gate" in tp
+    assert not any(k.startswith("stages/stage_1") for k in tp)
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_init_params_layout(arch, dtype):
     """Same leaf names, shapes (stacked [n_units] axis) and dtype strings;
     the port's draws match the JAX package's distributions."""
-    jc, tc = _cfgs(arch, dtype=dtype, n_layers=3)
+    n_layers = 8 if arch == "jamba-1.5-large-398b" else 3    # whole units
+    jc, tc = _cfgs(arch, dtype=dtype, n_layers=n_layers)
     jp = _flat(jax.tree.map(np.asarray, jlm.init_params(jc,
                                                         jax.random.key(0))))
     tp = _flat(tlm.init_params(tc, torch.Generator().manual_seed(0)))
@@ -122,11 +149,13 @@ def test_init_params_layout(arch, dtype):
     for name in jp:
         assert tuple(tp[name].shape) == jp[name].shape, name
         assert dtype_name(tp[name].dtype) == str(jp[name].dtype), name
-    assert tp["stages/stage_0/sub_0/attn/wq"].shape[0] == 3
+    first = "ssm/in_proj" if arch == "mamba2-780m" else "attn/wq"
+    assert tp[f"stages/stage_0/sub_0/{first}"].shape[0] == \
+        tlm.build_stages(tc)[0].n_units
     assert torch.equal(tp["final_norm/scale"].float(),
                        torch.ones(tc.d_model))
-    wq = tp["stages/stage_0/sub_0/attn/wq"].float()
-    assert wq.abs().max() <= 1 / np.sqrt(tc.d_model)
+    w = tp[f"stages/stage_0/sub_0/{first}"].float()
+    assert w.abs().max() <= 1 / np.sqrt(tc.d_model)
     assert abs(float(tp["embed"].float().std()) - 0.02) < 2e-3
     again = _flat(tlm.init_params(tc, torch.Generator().manual_seed(0)))
     assert all(torch.equal(tp[n], again[n]) for n in tp)   # seeded
@@ -145,10 +174,8 @@ def test_untied_head():
 
 
 @pytest.mark.parametrize("kw", [
-    {"mla": MLAConfig()}, {"moe": MoEConfig()}, {"family": "ssm"},
-    {"family": "hybrid", "hybrid_pattern": ("attn", "ssm")},
-    {"ssm": SSMConfig()}, {"enc_dec": True}, {"rope_type": "mrope"},
-    {"rope_type": "none"}, {"frontend": "audio"}, {"mtp": True}],
+    {"mla": MLAConfig()}, {"enc_dec": True}, {"rope_type": "mrope"},
+    {"frontend": "audio"}, {"mtp": True}],
     ids=lambda kw: "-".join(kw))
 def test_unported_features_raise(kw):
     cfg = treduced(tget("smollm-360m")).replace(**kw)
@@ -158,6 +185,38 @@ def test_unported_features_raise(kw):
     with pytest.raises(NotImplementedError,
                        match="ROADMAP Queue A, remaining workloads"):
         tlm.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("kw", [
+    {"moe": MoEConfig(n_experts=4, d_ff_expert=32)},
+    {"family": "ssm", "ssm": SSMConfig(d_state=8, head_dim=16,
+                                       chunk_size=4)},
+    {"family": "hybrid", "hybrid_pattern": ("attn", "ssm"),
+     "ssm": SSMConfig(d_state=8, head_dim=16, chunk_size=4)},
+    {"rope_type": "none"}],
+    ids=lambda kw: "-".join(kw))
+def test_ported_features_run(kw):
+    """MoE, SSM, hybrid stacks and sinusoidal positions no longer raise:
+    the port's model runs them and matches the JAX package's logits."""
+    jc, tc = _cfgs("smollm-360m", n_layers=2, **kw)
+    tlm.check_supported(tc)
+    jp, tp = _jax_params(jc)
+    toks = _tokens(jc, s=8, seed=6)
+    want = jlm.forward(jc, jp, {"tokens": jnp.asarray(toks)})
+    got = tlm.forward(tc, tp, {"tokens": torch.from_numpy(toks)})
+    _close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", [16, 64, 1536])
+def test_sinusoidal_embed(d):
+    pos = np.broadcast_to(np.arange(0, 600, 37, dtype=np.int32), (2, 17))
+    want = jlm._sinusoidal_embed(jnp.asarray(pos), d)
+    got = tlm._sinusoidal_embed(torch.from_numpy(pos.copy()), d)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 17, d)
+    # the two frameworks' float32 exp may differ by an ulp (2**-23
+    # relative) in a frequency; at position 592 the angle then moves by
+    # up to 592 * 2**-23 = 7.1e-5, and its sine and cosine by as much
+    _close(got, want, atol=1e-4, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -260,40 +319,113 @@ def test_embed_positions_unembed(arch):
     _close(got, jlm.unembed(jc, jp, jnp.asarray(x)), atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_apply_layer_and_run_stages(arch):
+    """Every sub-layer of the first stage's second unit, then the whole
+    stack: outputs and the MoE aux loss (zero without MoE layers)."""
     jc, tc = _cfgs(arch)
     jp, tp = _jax_params(jc)
     x = _x((2, 8, jc.d_model), 9)
     pos = np.broadcast_to(np.arange(8, dtype=np.int32), (2, 8)).copy()
-    spec_j, spec_t = jlm.build_stages(jc)[0].unit[0], \
-        tlm.build_stages(tc)[0].unit[0]
-    unit_j = jax.tree.map(lambda a: a[1], jp["stages"]["stage_0"])["sub_0"]
-    unit_t = tlm._unstack(tp["stages"]["stage_0"], jc.n_layers)[1]["sub_0"]
-    want, _ = jlm._apply_layer(unit_j, jc, spec_j, jnp.asarray(x),
-                               jnp.asarray(pos), None)
-    got = tlm._apply_layer(unit_t, tc, spec_t, torch.from_numpy(x),
-                           torch.from_numpy(pos))
+    stage_j, stage_t = jlm.build_stages(jc)[0], tlm.build_stages(tc)[0]
+    unit_j = jax.tree.map(lambda a: a[1], jp["stages"]["stage_0"])
+    unit_t = tlm._unstack(tp["stages"]["stage_0"], stage_t.n_units)[1]
+    for j, (spec_j, spec_t) in enumerate(zip(stage_j.unit, stage_t.unit)):
+        want, want_aux = jlm._apply_layer(unit_j[f"sub_{j}"], jc, spec_j,
+                                          jnp.asarray(x), jnp.asarray(pos),
+                                          None)
+        got, aux = tlm._apply_layer(unit_t[f"sub_{j}"], tc, spec_t,
+                                    torch.from_numpy(x),
+                                    torch.from_numpy(pos))
+        _close(got, want)
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+    want, want_aux = jlm._run_stages(jp["stages"], jlm.build_stages(jc), jc,
+                                     jnp.asarray(x), jnp.asarray(pos), None,
+                                     remat=False)
+    got, aux = tlm._run_stages(tp["stages"], tlm.build_stages(tc), tc,
+                               torch.from_numpy(x), torch.from_numpy(pos))
     _close(got, want)
-    want, _ = jlm._run_stages(jp["stages"], jlm.build_stages(jc), jc,
-                              jnp.asarray(x), jnp.asarray(pos), None,
-                              remat=False)
-    got = tlm._run_stages(tp["stages"], tlm.build_stages(tc), tc,
-                          torch.from_numpy(x), torch.from_numpy(pos))
-    _close(got, want)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+    assert (float(aux) > 0) == (tc.moe is not None)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_forward_logits(arch):
+    """Logits, the aux loss summed over MoE layers (a zero without them)
+    and, where a ``routes`` list is passed, one routing record a MoE layer
+    with no dropped assignment (the reduced configs' capacity factor 8)."""
     jc, tc = _cfgs(arch)
     jp, tp = _jax_params(jc)
-    toks = _tokens(jc, seed=3)
-    want = jlm.forward(jc, jp, {"tokens": jnp.asarray(toks)})
+    toks = _tokens(jc, s=12 if arch in ARCHS else 16, seed=3)
+    want, want_aux = jlm.forward(jc, jp, {"tokens": jnp.asarray(toks)},
+                                 return_aux=True)
+    routes = []
     got, aux = tlm.forward(tc, tp, {"tokens": torch.from_numpy(toks)},
-                           return_aux=True)
-    assert got.shape == (2, 12, jc.padded_vocab)
-    assert got.dtype == torch.float32 and float(aux["moe_aux"]) == 0.0
+                           return_aux=True, routes=routes)
+    assert got.shape == (2, toks.shape[1], jc.padded_vocab)
+    assert got.dtype == torch.float32 and aux["moe_aux"].dtype == \
+        torch.float32
+    assert set(aux) == set(want_aux) == {"moe_aux"}
     _close(got, want, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(float(aux["moe_aux"]),
+                               float(want_aux["moe_aux"]), rtol=1e-5)
+    assert (float(aux["moe_aux"]) == 0.0) == (tc.moe is None)
+    n_moe = sum(s.ffn == "moe" for st in tlm.build_stages(tc)
+                for s in st.unit * st.n_units)
+    assert len(routes) == n_moe and all(bool(v.all()) for _, v in routes)
+
+
+def test_forward_counts_dropped_assignments():
+    """With a capacity factor of 0.25 MoE layers drop assignments; the
+    count per sequence is the JAX package's dispatch count, summed over
+    the MoE layers, and the recorded experts are its router's."""
+    from repro.models import moe as jmoe
+    jc, tc = _cfgs("phi3.5-moe-42b-a6.6b", n_layers=1)
+    jc = jc.replace(moe=dataclasses.replace(jc.moe, capacity_factor=0.25))
+    tc = tc.replace(moe=dataclasses.replace(tc.moe, capacity_factor=0.25))
+    jp, tp = _jax_params(jc)
+    toks = _tokens(jc, s=16, seed=4)
+    routes = []
+    got = tlm.forward(tc, tp, {"tokens": torch.from_numpy(toks)},
+                      routes=routes)
+    _close(got, jlm.forward(jc, jp, {"tokens": jnp.asarray(toks)}),
+           atol=1e-4, rtol=1e-4)
+    unit = jax.tree.map(lambda a: a[0], jp["stages"]["stage_0"])["sub_0"]
+    x = jlm.embed_inputs(jc, jp, {"tokens": jnp.asarray(toks)})
+    pos = jnp.broadcast_to(jnp.arange(16)[None], (2, 16))
+    x = x + jl.gqa_forward(unit["attn"], jc,
+                           jl.rmsnorm(unit["norm1"], x, jc.norm_eps), pos)
+    h = jl.rmsnorm(unit["norm2"], x, jc.norm_eps).reshape(32, -1)
+    _, top_e = jmoe.route(unit["moe"]["router"], h, jc.moe)
+    _, valid = jmoe.dispatch_indices(top_e, jc.moe.n_experts,
+                                     jmoe.capacity(32, jc.moe))
+    want = (~np.asarray(valid)).reshape(2, -1).sum(1)
+    (experts, kept), = routes
+    assert (~kept).sum(dim=(1, 2)).tolist() == want.tolist()
+    assert want.sum() > 0
+    assert np.array_equal(experts.numpy(),
+                          np.asarray(top_e).reshape(2, 16, 2))
+
+
+def test_decode_step_records_the_routing():
+    """``decode_step(routes=...)`` collects each MoE layer's experts for
+    the token, the ones ``forward(routes=...)`` records at the same
+    position (no drops at the reduced capacity factor, float32)."""
+    _, tc = _cfgs("jamba-1.5-large-398b")
+    tp = tlm.init_params(tc, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(tc, s=8, seed=5))
+    with torch.no_grad():
+        pre = []
+        tlm.forward(tc, tp, {"tokens": toks}, routes=pre)
+        caches = tlm.init_caches(tc, 2, 8, device="cpu")
+        for t in range(8):
+            routes = []
+            tlm.decode_step(tc, tp, caches, {"tokens": toks[:, t:t + 1],
+                                             "index": t}, routes=routes)
+            assert len(routes) == len(pre) == 8
+            for (experts, kept), (pre_e, _) in zip(routes, pre):
+                assert bool(kept.all())
+                assert torch.equal(experts[:, 0], pre_e[:, t])
 
 
 def test_forward_logits_bf16():

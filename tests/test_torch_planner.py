@@ -592,3 +592,119 @@ def test_plan_lines_differ_from_jax_only_for_an_attach_target(tmp_path,
     assert tout[3].startswith("fetch") and "w @ " + c0 in tout[3]
     assert tout[4].startswith("covs: 1 fetch, 0 patch, 0 replay")
 
+
+
+# ---------------------------------------------------------------------------
+# the restorer's check of a replayed __attach__
+# ---------------------------------------------------------------------------
+
+def _attach_lost_everywhere(tmp_path, kind, change):
+    """An attach of ``w`` and ``emb``, two cells that change them (in place
+    for ``change="in_place"``, by rebinding each name to a new tensor for
+    ``"rebound"``), then every chunk file lost on every replica.  Returns
+    (session, attach commit, the attached values as they were)."""
+    import os
+    import shutil
+    uri = f"fabric://rep(dir://{tmp_path}/r0,dir://{tmp_path}/r1)" \
+        if kind == "fabric" else f"dir://{tmp_path}/cas"
+    s = KishuSession(open_store(uri), chunk_bytes=256, cache_bytes=0,
+                     device="cpu", plan_mode="fetch")
+    w = torch.arange(1024, dtype=torch.float32)
+    emb = torch.linspace(-1, 1, 4096).reshape(64, 64).clone()
+    want = {"w": w.clone(), "emb": emb.clone()}
+    if change == "in_place":
+        s.register("bump", lambda ns: ns["w"].add_(1.0))
+        s.register("touch", lambda ns: ns["emb"].mul_(2.0))
+    else:
+        s.register("bump", lambda ns: ns.__setitem__("w", ns["w"] + 1.0))
+        s.register("touch", lambda ns: ns.__setitem__("emb",
+                                                      ns["emb"] * 2.0))
+    c0 = s.init_state({"w": w, "emb": emb})
+    s.run("bump")
+    s.run("touch")
+    for root in ("r0", "r1") if kind == "fabric" else ("cas",):
+        shutil.rmtree(os.path.join(tmp_path, root, "chunks"))
+        os.makedirs(os.path.join(tmp_path, root, "chunks"))
+    return s, c0, want
+
+
+@pytest.mark.parametrize("kind", ["dir", "fabric"])
+def test_replayed_attach_of_a_tensor_changed_in_place_raises(tmp_path, kind):
+    """Before, the fallback replayed the attach with the caller's tensors,
+    which the cells had changed in place, and restored today's values as
+    the attach's without an error.  Now the replayed bytes are held
+    against the commit's detection hashes, and the checkout raises."""
+    from repro_torch.core.restore import RestoreError
+    s, c0, _ = _attach_lost_everywhere(tmp_path, kind, "in_place")
+    with pytest.raises(RestoreError, match=r"differs from the commit at "
+                                           r"chunk 0 of \d+"):
+        s.checkout(c0)
+    s.close()
+
+
+@pytest.mark.parametrize("kind", ["dir", "fabric"])
+def test_replayed_attach_unchanged_restores_exactly(tmp_path, kind):
+    """The cells rebind ``w`` and ``emb`` to new tensors, so the attached
+    ones are unchanged: with every chunk lost, both replay, pass the check
+    and come back exactly.  The check passes a value that is not an array
+    and refuses the changed bytes, chunk by chunk."""
+    from repro_torch.core.graph import key_str
+    from repro_torch.core.restore import (RestoreError,
+                                          check_against_manifest)
+    s, c0, want = _attach_lost_everywhere(tmp_path, kind, "rebound")
+    st = s.checkout(c0)
+    assert st.covs_recomputed == 2
+    assert torch.equal(s.ns["w"], want["w"])
+    assert torch.equal(s.ns["emb"], want["emb"])
+    man = s.graph.manifest_of(("emb",), c0)
+    assert man is s.graph.nodes[c0].manifests[key_str(("emb",))]
+    check_against_manifest(("emb",), c0, man, {"emb": want["emb"]})
+    check_against_manifest(("emb",), c0, man, {"emb": "not an array"})
+    late = want["emb"].clone()
+    late[40, 3] += 1                 # byte 10252: chunk 40 of 256-byte ones
+    with pytest.raises(RestoreError, match="chunk 40 of 64"):
+        check_against_manifest(("emb",), c0, man, {"emb": late})
+    with pytest.raises(RestoreError, match=r"\[64, 32\]"):
+        check_against_manifest(("emb",), c0, man,
+                               {"emb": want["emb"][:, :32].contiguous()})
+    # a manifest without detection hashes is held by its chunk keys
+    keyed = {**man, "base": {**man["base"], "det_hashes": []}}
+    check_against_manifest(("emb",), c0, keyed, {"emb": want["emb"]})
+    with pytest.raises(RestoreError, match="chunk 40 of 64"):
+        check_against_manifest(("emb",), c0, keyed, {"emb": late})
+    s.close()
+
+
+@pytest.mark.parametrize("change", ["in_place", "rebound"])
+def test_replayed_attach_of_a_one_chunk_tensor(tmp_path, change):
+    """A tensor smaller than one chunk (52 bytes at 256-byte chunks) is
+    hashed again at the next power of two, 64: one chunk hashes alike at
+    any chunk size that covers it.  Changed in place, its replay raises;
+    unchanged, it comes back exactly."""
+    import os
+    import shutil
+    from repro_torch.core import hashing
+    from repro_torch.core.restore import RestoreError
+    b = torch.linspace(-3, 3, 13)
+    assert hashing.chunk_hashes_np(b.numpy(), 64).tolist() == \
+        hashing.chunk_hashes_np(b.numpy(), 256).tolist()
+    want = b.clone()
+    s = KishuSession(open_store(f"dir://{tmp_path}/cas"), chunk_bytes=256,
+                     cache_bytes=0, device="cpu", plan_mode="fetch")
+    if change == "in_place":
+        s.register("bump", lambda ns: ns["b"].add_(1.0))
+    else:
+        s.register("bump", lambda ns: ns.__setitem__("b", ns["b"] + 1.0))
+    c0 = s.init_state({"b": b})
+    s.run("bump")
+    assert len(s.graph.manifest_of(("b",), c0)["base"]["chunks"]) == 1
+    shutil.rmtree(os.path.join(tmp_path, "cas", "chunks"))
+    os.makedirs(os.path.join(tmp_path, "cas", "chunks"))
+    if change == "in_place":
+        with pytest.raises(RestoreError, match="differs from the commit at "
+                                               "chunk 0 of 1"):
+            s.checkout(c0)
+    else:
+        assert s.checkout(c0).covs_recomputed == 1
+        assert torch.equal(s.ns["b"], want)
+    s.close()

@@ -1,5 +1,7 @@
 """The port's serving path held against the JAX package's, on reduced
-``smollm-360m`` and reduced ``qwen3-1.7b`` (qk-norm), on the CPU.
+``smollm-360m`` and reduced ``qwen3-1.7b`` (qk-norm), and on reduced
+``mamba2-780m`` (SSM caches), ``phi3.5-moe-42b-a6.6b`` (MoE) and
+``jamba-1.5-large-398b`` (KV and SSM caches side by side), on the CPU.
 
 Parameters come from the JAX package's initialiser and cross as raw bytes
 (``interop.to_torch``); prompts are made with numpy from a seed.  float32
@@ -8,9 +10,11 @@ rtol 1e-4 (the forward test's; the two frameworks sum products in
 different orders); bf16 prefill logits atol 3e-2 (the port's prefill keeps
 the probabilities in float32 for P.V, the JAX forward rounds them to
 bf16).  Prefill against decode within one package: 2e-3, the JAX test's
-bound.  Then the ``examples/serve_batched.py`` flow under Kishu: prefix
-commit, rollback before each generation, and a prefix committed by the JAX
-package's session continued by the port's.
+bound.  SSM cache leaves: atol 5e-5 / rtol 1e-4 (the SSD tests').  Then
+the ``examples/serve_batched.py`` flow under Kishu: prefix commit, rollback
+before each generation, and a prefix committed by the JAX package's
+session continued by the port's; SSM caches committed by both packages
+write the same chunks.
 """
 import numpy as np
 import pytest
@@ -40,6 +44,7 @@ from repro_torch.models.testing import reduced as treduced  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 
 ARCHS = ["smollm-360m", "qwen3-1.7b"]
+NEW_ARCHS = ["mamba2-780m", "phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b"]
 LOGITS = dict(atol=1e-4, rtol=1e-4)
 KV = dict(atol=1e-5, rtol=1e-4)
 CONSISTENCY = 2e-3
@@ -82,10 +87,11 @@ def _np(x):
 # caches, prefill and decode against the JAX package
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_init_caches_layout(arch, dtype):
-    jc, tc = _cfgs(arch, dtype=dtype, n_layers=3)
+    n_layers = 8 if arch == "jamba-1.5-large-398b" else 3    # whole units
+    jc, tc = _cfgs(arch, dtype=dtype, n_layers=n_layers)
     want = _flat(jax.tree.map(np.asarray, jlm.init_caches(jc, 2, 11)))
     got = _flat(tlm.init_caches(tc, 2, 11, device="cpu"))
     assert sorted(got) == sorted(want)
@@ -93,8 +99,17 @@ def test_init_caches_layout(arch, dtype):
         assert tuple(got[name].shape) == w.shape, name
         assert dtype_name(got[name].dtype) == str(w.dtype), name
         assert to_numpy(got[name]).tobytes() == w.tobytes(), name
+    if arch == "mamba2-780m":
+        state = got["stages/stage_0/sub_0/ssm/state"]
+        assert state.dtype == torch.float32
+        assert tuple(state.shape) == (3, 2, 8, 16, 16)
+        assert got["stages/stage_0/sub_0/ssm/conv"].dtype == \
+            getattr(torch, dtype)
+        return
     k = got["stages/stage_0/sub_0/attn/k"]
-    assert tuple(k.shape) == (3, 2, 11, tc.n_kv_heads, tc.resolved_head_dim)
+    n_units = tlm.build_stages(tc)[0].n_units
+    assert tuple(k.shape) == (n_units, 2, 11, tc.n_kv_heads,
+                              tc.resolved_head_dim)
     assert got["stages/stage_0/sub_0/attn/index"].dtype == torch.int32
 
 
@@ -106,25 +121,25 @@ def test_init_caches_defaults_to_the_card():
         tlm.init_caches(tc, 1, 4)
 
 
-@pytest.mark.parametrize("kw", [{"mla": MLAConfig()}, {"family": "ssm"},
-                                {"enc_dec": True}],
+@pytest.mark.parametrize("kw", [{"mla": MLAConfig()}, {"enc_dec": True}],
                          ids=lambda kw: "-".join(kw))
 def test_unported_caches_raise(kw):
-    """MLA, SSM and enc-dec (``enc_out``) caches are not ported."""
+    """MLA and enc-dec (``enc_out``) caches are not ported."""
     cfg = treduced(tget("smollm-360m")).replace(**kw)
     with pytest.raises(NotImplementedError,
                        match="ROADMAP Queue A, remaining workloads"):
         tlm.init_caches(cfg, 1, 4, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
 def test_prefill_logits_match_jax(arch):
     jc, tc = _cfgs(arch)
     jp, tp = _params(jc)
-    toks = _tokens(jc, 2, 13, seed=1)
+    s = 16 if tc.ssm is not None else 13         # SSD: chunks of 8
+    toks = _tokens(jc, 2, s, seed=1)
     want = jstep.make_prefill_step(jc)(jp, {"tokens": jnp.asarray(toks)})
     got = tstep.make_prefill_step(tc)(tp, {"tokens": torch.from_numpy(toks)})
-    assert got.shape == (2, 13, jc.padded_vocab) and got.dtype == torch.float32
+    assert got.shape == (2, s, jc.padded_vocab) and got.dtype == torch.float32
     np.testing.assert_allclose(_np(got), _np(want), **LOGITS)
 
 
@@ -178,24 +193,53 @@ def test_decode_teacher_forced_matches_jax(arch):
                 == bytes(g[:, :, 9:].nbytes)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
 def test_prefill_decode_consistency(arch):
-    """The port's prefill (flash attention) and its decode loop (cached
-    attention) give the same logits, as the JAX package's do."""
+    """The port's prefill (flash attention, chunked SSD) and its decode
+    loop (cached attention, the SSM recurrence) give the same logits, as
+    the JAX package's do."""
     _, tc = _cfgs(arch)
     tp = tlm.init_params(tc, torch.Generator().manual_seed(0))
-    toks = torch.from_numpy(_tokens(tc, 2, 8, seed=2))
+    s = 16 if tc.ssm is not None else 8          # SSD: chunks of 8
+    toks = torch.from_numpy(_tokens(tc, 2, s, seed=2))
     full = tstep.make_prefill_step(tc)(tp, {"tokens": toks})
-    caches = tlm.init_caches(tc, 2, 8, device="cpu")
+    caches = tlm.init_caches(tc, 2, s, device="cpu")
     outs = []
     with torch.no_grad():
-        for t in range(8):
+        for t in range(s):
             lg, caches = tlm.decode_step(tc, tp, caches,
                                          {"tokens": toks[:, t:t + 1],
                                           "index": t})
             outs.append(lg[:, 0])
     err = float((full - torch.stack(outs, 1)).abs().max())
     assert err < CONSISTENCY, f"{arch}: prefill/decode diverge by {err}"
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_decode_teacher_forced_matches_jax_ssm_moe(arch):
+    """Logits and every cache leaf after nine teacher-forced steps: SSM
+    ``conv`` and float32 ``state``, and K/V with ``index`` in Jamba's
+    attention layers (filled slots; the rest stay zero bytes)."""
+    jc, tc = _cfgs(arch)
+    jp, tp = _params(jc)
+    toks = _tokens(jc, 2, 9, seed=2)
+    jl, tl, jcache, tcache = _decode_both(jc, tc, jp, tp, toks, 12)
+    np.testing.assert_allclose(_np(tl), _np(jl), **LOGITS)
+    want = _flat(jax.tree.map(np.asarray, jcache))
+    got = _flat(to_numpy(tcache))
+    assert sorted(got) == sorted(want)
+    assert any("/ssm/" in n for n in want) == (tc.ssm is not None)
+    for name, w in want.items():
+        g = got[name]
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name.endswith("index"):
+            assert g.tobytes() == w.tobytes() and set(g.tolist()) == {9}
+        elif "/ssm/" in name:
+            np.testing.assert_allclose(g, w, atol=5e-5, rtol=1e-4,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(g[:, :, :9], w[:, :, :9], **KV)
+            assert g[:, :, 9:].tobytes() == w[:, :, 9:].tobytes()
 
 
 def test_decode_step_argmax_and_vocab_mask():
@@ -246,11 +290,23 @@ def test_jax_cache_tree_crosses_byte_for_byte():
 
 
 def test_serve_launcher_on_the_cpu(capsys):
+    """The default architecture is the JAX launcher's, mamba2-780m."""
     tserve.main(["--reduced", "--device", "cpu", "--batch", "2",
                  "--prompt-len", "6", "--gen", "4"])
     out = capsys.readouterr().out
-    assert "arch=smollm-360m batch=2 generated 4 tokens/seq in" in out
+    assert "arch=mamba2-780m batch=2 generated 4 tokens/seq in" in out
     assert "tok/s incl prefill" in out and "sample:" in out
+
+
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
+def test_serve_launcher_runs_each_arch(arch, capsys):
+    """A prefill-then-decode-loop serve run of each registered arch."""
+    tserve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch",
+                 "2", "--prompt-len", "5", "--gen", "3"])
+    out = capsys.readouterr().out
+    assert f"arch={arch} batch=2 generated 3 tokens/seq in" in out
+    sample = out.split("sample:")[1]
+    assert len(sample.strip(" []\n").split()) == 3
 
 
 def test_serve_launcher_defaults_to_the_card():
@@ -420,3 +476,98 @@ def test_serving_never_builds_a_kernel_on_the_cpu(monkeypatch):
     tstep.make_prefill_step(tc)(tp, {"tokens": toks})
     tstep.make_decode_step(tc)(tp, tlm.init_caches(tc, 2, 5, device="cpu"),
                                {"tokens": toks[:, :1], "index": 0})
+
+
+@pytest.mark.parametrize("kind", ["memory", "dir"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_serve_batched_flow_ssm_moe(tmp_path, kind, arch):
+    """The serve_batched flow (the JAX example serves mamba2) with SSM
+    caches, whose every leaf each decode step rewrites: each rollback to
+    the prefix restores the caches bit for bit, and a repeated flavor
+    regenerates the same tokens and caches."""
+    _, tc = _cfgs(arch)
+    tp = tlm.init_params(tc, torch.Generator().manual_seed(0))
+    uri = "memory://" if kind == "memory" else f"dir://{tmp_path}/cas"
+    sess = tcore.KishuSession(tcore.open_store(uri), chunk_bytes=CB,
+                              device="cpu")
+    prefill, generate = _torch_cells(tc, tp)
+    sess.register("prefill", prefill)
+    sess.register("generate", generate)
+    sess.init_state({})
+    prefix = sess.run("prefill", seed=7)
+    want = _cache_bytes(sess.ns)
+    assert any(n.endswith("/ssm/state") for n in want) == \
+        (tc.ssm is not None)
+    results, caches = {}, {}
+    for flavor in (1, 2, 1):
+        sess.checkout(prefix)
+        assert _cache_bytes(sess.ns) == want
+        sess.run("generate", n=GEN, flavor=flavor)
+        got = (sess.ns["generated"].clone(), _cache_bytes(sess.ns))
+        if flavor in results:
+            assert torch.equal(got[0], results[flavor])
+            assert got[1] == caches[flavor]
+        results[flavor], caches[flavor] = got
+    assert not torch.equal(results[1], results[2])
+    state = [n for n in want if n.endswith("/ssm/state")]
+    for n in state:                  # the state is rewritten every step
+        assert caches[1][n] != want[n] and caches[2][n] != want[n]
+    sess.close()
+
+
+def _store_files(root):
+    import os
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def test_ssm_caches_commit_and_roll_back_as_the_jax_package(tmp_path):
+    """SSM caches decoded by the JAX package cross to the port as raw
+    bytes; committed by each package's session they write the same chunk
+    files and keys.  The port then decodes on (rewriting every cache
+    leaf in place) and rolls back to the commit, bit for bit."""
+    jc, tc = _cfgs("mamba2-780m")
+    jp, tp = _params(jc, seed=2)
+    toks = _tokens(jc, B, PREFIX, seed=3)
+    jcache = jlm.init_caches(jc, B, PREFIX + GEN)
+    for t in range(PREFIX):
+        _, jcache = jlm.decode_step(jc, jp, jcache,
+                                    {"tokens": jnp.asarray(toks[:, t:t + 1]),
+                                     "index": jnp.asarray(t, jnp.int32)})
+    host = jax.tree.map(np.asarray, jcache)
+    js = jcore.KishuSession(jcore.open_store(f"dir://{tmp_path}/j"),
+                            chunk_bytes=CB)
+    jcid = js.init_state({"caches": jax.tree.map(jnp.asarray, host)})
+    js.close()
+    ts = tcore.KishuSession(tcore.open_store(f"dir://{tmp_path}/t"),
+                            chunk_bytes=CB, device="cpu")
+    tcid = ts.init_state({"caches": to_torch(host, "cpu")})
+    assert jcid == tcid
+    jfiles, tfiles = _store_files(tmp_path / "j"), _store_files(tmp_path / "t")
+    chunks = sorted(n for n in jfiles if n.startswith("chunks"))
+    assert chunks and chunks == sorted(n for n in tfiles
+                                       if n.startswith("chunks"))
+    assert all(jfiles[n] == tfiles[n] for n in chunks)
+    want = _cache_bytes(ts.ns)
+
+    def decode_on(ns, n):
+        caches = ns.get_tree("caches")
+        tok = torch.from_numpy(toks[:, -1:].copy())
+        with torch.no_grad():
+            for t in range(n):
+                lg, caches = tlm.decode_step(tc, tp, caches,
+                                             {"tokens": tok,
+                                              "index": PREFIX + t})
+                tok = lg[..., :tc.vocab_size].argmax(-1).to(torch.int32)
+    ts.register("decode_on", decode_on)
+    ts.run("decode_on", n=3)
+    assert all(_cache_bytes(ts.ns)[n] != want[n] for n in want)
+    st = ts.checkout(tcid)
+    assert _cache_bytes(ts.ns) == want
+    assert st.covs_patched + st.covs_loaded == len(want)
+    ts.close()

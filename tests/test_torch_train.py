@@ -1,4 +1,5 @@
-"""The port's optimizer, loss, train step and data pipeline held against the
+"""The port's optimizer, loss, train step (gradient accumulation and the
+SSM, MoE and hybrid families included) and data pipeline held against the
 JAX package's.
 
 States cross from ``repro.train.step.init_train_state`` as raw bytes
@@ -227,11 +228,86 @@ def test_train_steps_match_jax(arch, steps):
     assert torch.equal(tstate["rng"], torch.zeros(2, dtype=torch.uint32))
 
 
-def test_microbatches_not_ported():
-    tcfg = treduced(tget("smollm-360m"))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, remaining workloads"):
-        tstep.make_train_step(tcfg, tadamw.AdamWConfig(), microbatches=2)
+@pytest.mark.parametrize("arch", ["mamba2-780m", "phi3.5-moe-42b-a6.6b",
+                                  "jamba-1.5-large-398b"])
+def test_train_step_matches_jax_ssm_moe(arch):
+    """One step of each new family: the loss, the MoE aux loss and every
+    parameter and moment (SSD gradients through the chunked form)."""
+    n_layers = 8 if arch == "jamba-1.5-large-398b" else 2
+    jcfg, tcfg, jstate, tstate, opt = _carried(arch, n_layers=n_layers)
+    jfn = jstep.make_train_step(jcfg, jadamw.AdamWConfig(**opt),
+                                remat=False)
+    tfn = tstep.make_train_step(tcfg, tadamw.AdamWConfig(**opt))
+    jb, tb = _batch(jcfg, 0)
+    jstate, jm = jfn(jstate, jb, jnp.float32(1e-3))
+    tstate, tm = tfn(tstate, tb, 1e-3)
+    for key in ("loss", "total_loss", "moe_aux", "grad_norm"):
+        np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                   rtol=1e-4, atol=1e-7, err_msg=key)
+    assert (float(tm["moe_aux"]) > 0) == (tcfg.moe is not None)
+    # Adam's first step moves a parameter by lr * g / (|g| + eps); where g
+    # is at the float32 summation-noise level, a difference d between the
+    # two frameworks' sums moves it by lr * d / eps: d reaches 1e-8 in the
+    # 8-layer hybrid, so 1e-5 here (1% of lr), under atol 2e-5
+    _assert_tree_close(tstate["params"],
+                       jax.tree.map(np.asarray, jstate["params"]),
+                       rtol=1e-4, atol=2e-5)
+    _assert_tree_close(tstate["opt"], jax.tree.map(np.asarray,
+                                                   jstate["opt"]))
+
+
+@pytest.mark.parametrize("arch,microbatches",
+                         [("smollm-360m", 2), ("smollm-360m", 4),
+                          ("phi3.5-moe-42b-a6.6b", 2), ("mamba2-780m", 2)])
+def test_microbatched_steps_match_jax(arch, microbatches):
+    """Gradient accumulation: the batch of 4 split into microbatches, float32
+    gradients summed in order and scaled, then one AdamW update — two
+    steps against the JAX package's ``make_train_step(microbatches=...)``."""
+    jcfg, tcfg, jstate, tstate, opt = _carried(arch)
+    jfn = jstep.make_train_step(jcfg, jadamw.AdamWConfig(**opt),
+                                remat=False, microbatches=microbatches)
+    tfn = tstep.make_train_step(tcfg, tadamw.AdamWConfig(**opt),
+                                microbatches=microbatches)
+    ids = {k: id(v) for k, v in _flat(tstate).items()}
+    for i in range(2):
+        jb, tb = _batch(jcfg, i, b=4)
+        jstate, jm = jfn(jstate, jb, jnp.float32(1e-3))
+        tstate, tm = tfn(tstate, tb, 1e-3)
+        for key in ("loss", "total_loss", "moe_aux", "grad_norm"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                       rtol=1e-4, atol=1e-7, err_msg=key)
+        assert int(tm["step"]) == int(jm["step"]) == i + 1
+    assert {k: id(v) for k, v in _flat(tstate).items()} == ids  # in place
+    _assert_tree_close(tstate["params"],
+                       jax.tree.map(np.asarray, jstate["params"]))
+    _assert_tree_close(tstate["opt"], jax.tree.map(np.asarray,
+                                                   jstate["opt"]))
+
+
+def test_microbatches_average_to_the_whole_batch():
+    """On a dense model the mean of the microbatches' mean losses is the
+    whole batch's mean loss, and so are the gradients: one step with 2
+    microbatches lands where one step on the whole batch does."""
+    _, tcfg, _, whole, opt = _carried("smollm-360m")
+    _, _, _, split, _ = _carried("smollm-360m")
+    _, tb = _batch(tcfg, 0, b=4)
+    _, m1 = tstep.make_train_step(tcfg, tadamw.AdamWConfig(**opt))(
+        whole, tb, 1e-3)
+    _, m2 = tstep.make_train_step(tcfg, tadamw.AdamWConfig(**opt),
+                                  microbatches=2)(split, tb, 1e-3)
+    for key in ("loss", "total_loss", "grad_norm"):
+        np.testing.assert_allclose(float(m2[key]), float(m1[key]),
+                                   rtol=1e-5, err_msg=key)
+    _assert_tree_close(split["params"], whole["params"])
+
+
+@pytest.mark.parametrize("microbatches", [0, 3])
+def test_microbatches_must_divide_the_batch(microbatches):
+    _, tcfg, _, tstate, opt = _carried("smollm-360m")
+    _, tb = _batch(tcfg, 0, b=4)
+    with pytest.raises(ValueError, match="microbatch"):
+        tstep.make_train_step(tcfg, tadamw.AdamWConfig(**opt),
+                              microbatches=microbatches)(tstate, tb)
 
 
 # ---------------------------------------------------------------------------
