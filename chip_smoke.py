@@ -18,14 +18,19 @@ Phase 1  holds every kernel against its plain torch version on the card at
          GQA, head dim 128, ragged S, S 4096) on each of its routes (bf16:
          the tensor-core route "tc" and the FMA route; float32: FMA), and
          timed beside SDPA; Phase 7b's prefill shape (bf16, 8 x 128, 32/8
-         heads of 128) is one of them.  Every kernel, index_copy_, the block_diff
-         library call and SDPA are timed by device time (CUDA-graph replay,
-         5 rounds in turns; median and range), with the L2 warm and with
-         it cold (a 128 MiB write before each call, its own time taken
-         off), beside the host loop; chunk_hash, delta_pack (scan +
-         gather), delta_codec and block_diff through their C entries,
-         since their wrappers read a count or masks back.  delta_codec is
-         also timed on random words, whose planes are all stored.
+         heads of 128) is one of them, and so are Phase 7c's MLA prefill
+         (8 x 128, 128 heads, q and k of 192, v of 128 zero-padded to
+         192; SDPA also on the unpadded v), Phase 7d's encoder (8 x 1500,
+         20 heads of 64) and decoder prefill (8 x 16), and stablelm-12b's
+         head dim 160 (8 x 512, 32/8 heads).  Every kernel, index_copy_,
+         the block_diff library call and SDPA are timed by device time
+         (CUDA-graph replay, 5 rounds in turns; median and range), with
+         the L2 warm and with it cold (a 128 MiB write before each call,
+         its own time taken off), beside the host loop; chunk_hash,
+         delta_pack (scan + gather), delta_codec and block_diff through
+         their C entries, since their wrappers read a count or masks
+         back.  delta_codec is also timed on random words, whose planes
+         are all stored.
 Phase 2  the main path: a ``KishuSession`` on a ``dir://`` store commits a
          SmolLM-360M-shaped fine-tuning state (fp32 params + AdamW m and v,
          870 tensors, 4.34 GB, random from a seeded CUDA generator), runs an
@@ -103,9 +108,26 @@ Phase 7b Cell F, MoE serving: phi3.5-moe-42b-a6.6b at full width (d_model
          32064, capacity factor 1.25), cut to its first 2 of 32 layers;
          Phase 5's flow at batch 8, a 128-token prompt, 32 generated
          tokens, 16 KiB chunks, two rollbacks (flavors 1, 2) and one by
-         the eager step.  Prefill and decode logits are held on the
-         sequences whose prefill dropped no assignment, at the positions
-         where both routed each token to the same experts.
+         the eager step.  Prefill and decode logits are held at the
+         positions where both compute the same function: no MoE layer
+         dropped an assignment there or routed it otherwise than decode,
+         nor at an earlier position of the sequence where an attention
+         layer follows that MoE layer (``routing_mask_of``).
+Phase 7c Cell G, MLA + MoE serving: deepseek-v3-671b at full width (d_model
+         7168, 128 MLA heads: q_lora 1536, kv_lora 512, qk 128 + 64, v
+         128; 256 routed experts top-8 of d_ff 2048 plus one shared,
+         capacity 1.25; vocab 129280; the MTP block carried), cut to its
+         first 4 of 61 layers (3 dense-prefix, 1 MoE; 15.8 B params, 31.6
+         GB); Cell F's flow and traffic, flavors 1, 2, 1.  The prefill
+         sends MLA through the flash kernel with v zero-padded to the qk
+         head dim; decode writes the compressed caches c_kv and k_rope
+         (5.9 MB) in place.  Peak memory is recorded.
+Phase 7d Cell H, enc-dec serving: whisper-large-v3 at full size (32
+         encoder + 32 decoder layers, d_model 1280, 20 heads of 64), 1,500
+         seeded encoder frames, a 16-token decoder prompt, 64 generated,
+         flavors 1, 2, 1.  enc_out [8, 1500, 1280] is written once before
+         the prefix commit; every rollback must keep its tensor and read
+         none of its chunks from the store.
 
 Output: per-phase lines, one JSON line of kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  The full record goes to
@@ -187,10 +209,23 @@ SSM_PATH_KERNELS = ("chunk_hash", "delta_pack", "block_diff")
 MOE_LAYERS = 2
 MOE_BATCH, MOE_PROMPT, MOE_GEN = 8, 128, 32
 MOE_PATH_KERNELS = SERVE_PATH_KERNELS
+# Cell G (Phase 7c): deepseek-v3-671b at full width, depth cut to its first
+# 4 of 61 layers (the 3 dense-prefix layers and the first MoE layer, whose
+# 256 experts alone are 23.0 GB in bf16); Cell F's traffic
+MLA_LAYERS = 4
+MLA_BATCH, MLA_PROMPT, MLA_GEN = 8, 128, 32
+MLA_PARAMS = 15_797_352_448
+MLA_PATH_KERNELS = SERVE_PATH_KERNELS
+# Cell H (Phase 7d): whisper-large-v3 at full size; 1,500 encoder frames
+# (whisper's 30 s window after its conv frontend, which the model stubs as
+# precomputed frame embeddings), a 16-token decoder prompt, 64 generated
+ENC_BATCH, ENC_FRAMES, ENC_PROMPT, ENC_GEN = 8, 1500, 16, 64
+ENC_PARAMS = 2_020_682_240
+ENC_PATH_KERNELS = SERVE_PATH_KERNELS
 # the phases whose launch counts the kernels line reports, each read from
 # its own run (counts set to 0 just before it)
 PATHS = ("phase2", "phase4", "phase4b", "phase5", "phase6", "phase7",
-         "phase7b")
+         "phase7b", "phase7c", "phase7d")
 # the phases ``--only`` runs alone: each takes (torch, dev, workdir)
 TIMED_PHASES = ("phase2", "phase6")
 
@@ -662,20 +697,32 @@ def phase1(torch, dev) -> list:
 
 
 def flash_cases(torch) -> list:
-    """(label, B, S, Hq, Hkv, hd, dtype, causal): Phase 5's prefill shape
-    first, then Phase 7b's (phi3.5-moe: 32/8 heads of 128), float32, full
-    attention, no GQA, qwen3-1.7b's head dim, a ragged S and a long S."""
+    """(label, B, S, Hq, Hkv, hd, dtype, causal, v_hd): Phase 5's prefill
+    shape first, then Phase 7b's (phi3.5-moe: 32/8 heads of 128), float32,
+    full attention, no GQA, qwen3-1.7b's head dim, a ragged S, a long S;
+    Phase 7c's MLA prefill (deepseek-v3: 128 heads, q and k of 192, v of
+    128 zero-padded to 192, as ``layers._mla_attend`` hands it over),
+    Phase 7d's encoder (whisper: S 1500, not a multiple of the tile) and
+    decoder prefill, and stablelm-12b's head dim 160.  ``v_hd`` < hd
+    zeroes v's last hd - v_hd columns."""
     bf, f32 = torch.bfloat16, torch.float32
     b, s, hq, hkv = SERVE_BATCH, SERVE_PROMPT, N_HEADS, N_KV
-    return [("main", b, s, hq, hkv, HEAD_DIM, bf, True),
+    return [("main", b, s, hq, hkv, HEAD_DIM, bf, True, HEAD_DIM),
             ("phi35_moe_prefill", MOE_BATCH, MOE_PROMPT, 32, 8, 128, bf,
-             True),
-            ("float32", b, s, hq, hkv, HEAD_DIM, f32, True),
-            ("full", b, s, hq, hkv, HEAD_DIM, bf, False),
-            ("n_rep_1", b, s, hq, hq, HEAD_DIM, bf, True),
-            ("hd_128", b, s, 16, 8, 128, bf, True),
-            ("ragged", b, s + 5, hq, hkv, HEAD_DIM, bf, True),
-            ("long", 1, 4096, hq, hkv, HEAD_DIM, bf, True)]
+             True, 128),
+            ("float32", b, s, hq, hkv, HEAD_DIM, f32, True, HEAD_DIM),
+            ("full", b, s, hq, hkv, HEAD_DIM, bf, False, HEAD_DIM),
+            ("n_rep_1", b, s, hq, hq, HEAD_DIM, bf, True, HEAD_DIM),
+            ("hd_128", b, s, 16, 8, 128, bf, True, 128),
+            ("ragged", b, s + 5, hq, hkv, HEAD_DIM, bf, True, HEAD_DIM),
+            ("long", 1, 4096, hq, hkv, HEAD_DIM, bf, True, HEAD_DIM),
+            ("deepseek_mla_prefill", MLA_BATCH, MLA_PROMPT, 128, 128, 192,
+             bf, True, 128),
+            ("whisper_encoder", ENC_BATCH, ENC_FRAMES, 20, 20, 64, bf, True,
+             64),
+            ("whisper_decoder_prefill", ENC_BATCH, ENC_PROMPT, 20, 20, 64,
+             bf, True, 64),
+            ("stablelm_hd_160", 8, 512, 32, 8, 160, bf, True, 160)]
 
 
 def phase1_flash(torch, dev) -> dict:
@@ -697,9 +744,10 @@ def phase1_flash(torch, dev) -> dict:
     tol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 2 ** -7)}
     g = torch.Generator(device=dev).manual_seed(2)
     checks = []
-    for label, b, s, hq, hkv, hd, dtype, causal in flash_cases(torch):
+    for label, b, s, hq, hkv, hd, dtype, causal, v_hd in flash_cases(torch):
         q, k, v = (torch.randn((b, s, h, hd), device=dev, generator=g)
                    .to(dtype) for h in (hq, hkv, hkv))
+        v[..., v_hd:] = 0
         want_route = "tc" if dtype == torch.bfloat16 else "fma"
         check(flash_route(q, k, v) == want_route,
               f"flash_attention {label}: route {flash_route(q, k, v)}")
@@ -734,10 +782,13 @@ def phase1_flash(torch, dev) -> dict:
                for r in routes}
         fns["sdpa"] = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True)
+        if v_hd < hd:          # the library's MLA call: v unpadded
+            fns["sdpa_v_unpadded"] = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt[..., :v_hd], is_causal=causal, enable_gqa=True)
         iters = 5 if s > 1024 else 20
         dev_t = device_ms(torch, fns, iters, cold=label == "main")
         checks.append({
-            "label": label, "shape": [b, s, hq, hkv, hd],
+            "label": label, "shape": [b, s, hq, hkv, hd], "v_hd": v_hd,
             "dtype": str(dtype).replace("torch.", ""), "causal": causal,
             "route": want_route, "max_abs_err": errs[want_route],
             "max_abs_err_by_route": errs, "atol": atol, "rtol": rtol,
@@ -1550,21 +1601,24 @@ def profile_decode(torch, step, params, caches, tok, n: int) -> dict:
 
 def logit_bound_of(torch, cfg, params) -> float:
     """Bound on |prefill - decode| logits, from bf16: one rounding (2**-8
-    relative) per residual add, 2 per layer, summed as a random walk,
-    moves the final normed state x (|x| = sqrt(d_model)) by
-    2**-8 sqrt(2 L) sqrt(d_model); a logit moves by at most that times the
-    norm of its unembedding row (the embedding's when tied)."""
+    relative) per residual add, 2 per layer (3 in an enc-dec decoder,
+    whose cross-attention adds one), summed as a random walk, moves the
+    final normed state x (|x| = sqrt(d_model)) by
+    2**-8 sqrt(adds) sqrt(d_model); a logit moves by at most that times
+    the norm of its unembedding row (the embedding's when tied)."""
     import math
     w = params["embed"].float() if cfg.tie_embeddings \
         else params["lm_head"].float().t()
-    return 2 ** -8 * math.sqrt(2 * cfg.n_layers) * math.sqrt(cfg.d_model) \
+    adds = cfg.n_layers * (3 if cfg.enc_dec else 2)
+    return 2 ** -8 * math.sqrt(adds) * math.sqrt(cfg.d_model) \
         * float(w.norm(dim=1).max())
 
 
 def serve_cell(torch, dev, workdir: Path, tag: str, cfg, params, *,
                batch: int, prompt: int, gen: int, chunk_bytes: int,
                flavors: tuple, path_kernels: tuple,
-               compare_mask=None, after_prefill=None) -> dict:
+               compare_mask=None, after_prefill=None,
+               enc_frames=None) -> dict:
     """examples/serve_batched.py on the card for ``cfg``: ``make_prefill_step``
     on ``batch`` x ``prompt`` tokens, then the teacher-forced decode loop
     (a CUDA graph of the step) fills the caches and its logits are held
@@ -1581,13 +1635,21 @@ def serve_cell(torch, dev, workdir: Path, tag: str, cfg, params, *,
     and a dict recorded beside them; ``after_prefill(rec, logits)`` runs
     inside the prefill cell after the prefill step.  Kernel launches are
     counted from the prefix commit to the eager generation's
-    verification, and each of ``path_kernels`` must have launched."""
+    verification, and each of ``path_kernels`` must have launched.
+
+    An enc-dec model takes ``enc_frames`` [B, S_enc, d]: the prefill step
+    encodes them with the prompt, and ``lm.encode`` writes them once into
+    the caches' ``enc_out`` before the prefix commit.  Decode never writes
+    ``enc_out``, so every rollback must keep its tensor and ask the store
+    for none of its chunks.  The card's peak allocated memory over the
+    cell is recorded."""
     from repro_torch.core import KishuSession, open_store
     from repro_torch.kernels import _lib
     from repro_torch.models import lm
     from repro_torch.train import step as step_lib
 
     b, plen, vocab = batch, prompt, cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
     prompts = torch.randint(0, vocab, (b, plen), dtype=torch.int32,
                             device=dev, generator=torch.Generator(
                                 device=dev).manual_seed(1))
@@ -1603,12 +1665,26 @@ def serve_cell(torch, dev, workdir: Path, tag: str, cfg, params, *,
     if compare_mask is not None:
         mask, rec["compare"] = compare_mask(prompts)
     errs: dict = {}
+    prefill_batch = {"tokens": prompts}
+    if enc_frames is not None:
+        prefill_batch["enc_embeds"] = enc_frames
+
+    def new_caches():
+        caches = lm.init_caches(cfg, b, plen + gen, enc_seq=0 if enc_frames
+                                is None else enc_frames.shape[1])
+        if enc_frames is not None:
+            with torch.no_grad():
+                caches["enc_out"] = lm.encode(cfg, params,
+                                              {"enc_embeds": enc_frames})
+        return caches
 
     def prefill(ns):
         t0 = time.perf_counter()
-        logits = prefill_step(params, {"tokens": prompts})
+        logits = prefill_step(params, prefill_batch)
         torch.cuda.synchronize()
         rec["prefill_step_s"] = time.perf_counter() - t0
+        rec["peak_allocated_prefill_bytes"] = \
+            torch.cuda.max_memory_allocated()
         if after_prefill is not None:
             after_prefill(rec, logits)
         check(tuple(logits.shape) == (b, plen, cfg.padded_vocab)
@@ -1617,7 +1693,7 @@ def serve_cell(torch, dev, workdir: Path, tag: str, cfg, params, *,
               f"{tag} prefill logits {tuple(logits.shape)} {logits.dtype}")
         t0 = time.perf_counter()
         cap0, cap_s0 = decode.captures, decode.capture_s
-        caches = lm.init_caches(cfg, b, plen + gen)
+        caches = new_caches()
         tok = prompts[:, :1]
         err = torch.zeros((b, plen), device=dev)
         err_sum = torch.zeros((), dtype=torch.float64, device=dev)
@@ -1661,8 +1737,17 @@ def serve_cell(torch, dev, workdir: Path, tag: str, cfg, params, *,
             torch.cuda.synchronize()
         return generate
 
-    sess = KishuSession(open_store(f"dir://{workdir}/serve_cas"),
-                        chunk_bytes=chunk_bytes, trace=True)
+    # the store's reads, recorded during each checkout: an enc-dec
+    # rollback must read no chunk of enc_out
+    store = open_store(f"dir://{workdir}/serve_cas")
+    reads: list = []
+    for name in ("get_chunk", "get_chunks"):
+        def spy(keys, *a, _real=getattr(store, name), **kw):
+            reads.extend([keys] if isinstance(keys, str) else list(keys))
+            return _real(keys, *a, **kw)
+        setattr(store, name, spy)
+    fixed: dict = {}
+    sess = KishuSession(store, chunk_bytes=chunk_bytes, trace=True)
     check(sess.device.type == "cuda", "the session did not default to cuda")
     tracer = sess.obs.tracer
     sess.register("prefill", prefill)
@@ -1686,10 +1771,17 @@ def serve_cell(torch, dev, workdir: Path, tag: str, cfg, params, *,
                       "chunks_encoded": w.chunks_encoded}
 
     def checkout_rec(label: str, target: str, snap: dict) -> None:
+        reads.clear()
         t0 = time.perf_counter()
         st = sess.checkout(target)
         torch.cuda.synchronize()
         rec[f"{label}_s"] = time.perf_counter() - t0
+        for name, (tensor, keys) in fixed.items():
+            n_read = len(keys & set(reads))
+            rec[f"{label}_{name.split('/')[-1]}_chunks_read"] = n_read
+            check(sess.ns[name] is tensor and n_read == 0,
+                  f"{tag} {label}: the rollback reloaded {name} "
+                  f"({n_read} of its chunks read)")
         rec[f"{label}_stages"] = tracer.stage_totals()
         tracer.clear()
         rec[label] = {
@@ -1719,12 +1811,19 @@ def serve_cell(torch, dev, workdir: Path, tag: str, cfg, params, *,
         rec["cache_bytes"] = sum(sess.ns[n].numel()
                                  * sess.ns[n].element_size()
                                  for n in cache_names)
+        if enc_frames is not None:
+            from repro_torch.core.chunkstore import chunk_key
+            t = sess.ns["caches/enc_out"]
+            raw = t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
+            fixed["caches/enc_out"] = (t, {
+                chunk_key(raw[i:i + chunk_bytes])
+                for i in range(0, len(raw), chunk_bytes)})
         err = errs.pop("max")
-        rec["prefill_decode_max_abs_err"] = float(err[mask].max())
-        rec["prefill_decode_max_abs_err_all"] = float(err.max())
         rec["prefill_decode_positions_held"] = int(mask.sum())
         check(rec["prefill_decode_positions_held"] > 0,
               f"{tag}: no position to hold prefill against decode at")
+        rec["prefill_decode_max_abs_err"] = float(err[mask].max())
+        rec["prefill_decode_max_abs_err_all"] = float(err.max())
         check(rec["prefill_decode_max_abs_err"] <= logit_bound,
               f"{tag}: prefill and decode logits differ by "
               f"{rec['prefill_decode_max_abs_err']} > {logit_bound}")
@@ -1755,7 +1854,9 @@ def serve_cell(torch, dev, workdir: Path, tag: str, cfg, params, *,
         check(not torch.equal(tokens[flavors[0]], tokens[flavors[1]]),
               f"{tag}: flavors {flavors[:2]} generated the same tokens")
         # the eager step from the same checkout: the graph's tokens and
-        # caches bit for bit
+        # caches bit for bit.  Its transients cannot use the graph's
+        # private pool: give it the blocks the allocator holds
+        torch.cuda.empty_cache()
         checkout_rec("checkout_eager", c_prefix, snap0)
         t0 = time.perf_counter()
         sess.run("generate_eager", n=gen, flavor=flavors[0])
@@ -1787,13 +1888,19 @@ def serve_cell(torch, dev, workdir: Path, tag: str, cfg, params, *,
     # the card's busy share in a decode step: torch.profiler's kernel time
     # over the host clock, for the graph and for the eager step, on caches
     # of their own (the graph captures once more for them)
+    torch.cuda.empty_cache()
     rec["decode_profile"] = {
-        name: profile_decode(torch, step, params, lm.init_caches(
-            cfg, b, plen + gen), prompts[:, :1], min(n, plen + gen - 1))
+        name: profile_decode(torch, step, params, new_caches(),
+                             prompts[:, :1], min(n, plen + gen - 1))
         for name, step, n in (("graph", decode, 20),
                               ("eager", eager_decode, 5))}
+    rec["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    rec["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
     print(f"{tag} {cfg.name}: caches {rec['cache_leaves']} "
-          f"({rec['cache_bytes']} bytes) on {dev}", flush=True)
+          f"({rec['cache_bytes']} bytes) on {dev}; peak allocated "
+          f"{rec['peak_allocated_bytes']} bytes ("
+          f"{rec['peak_allocated_prefill_bytes']} through the prefill "
+          f"step), reserved {rec['peak_reserved_bytes']}", flush=True)
     print(f"{tag} prefill_step: {rec['prefill_step_s']:.3f} s "
           f"({rec['prefill_tok_s']:.0f} tok/s); decode-loop "
           f"prefill {rec['decode_prefill_s']:.3f} s "
@@ -1933,14 +2040,13 @@ def phase7b(torch, dev, workdir: Path) -> dict:
     the decode loop, a prefix commit in 16 KiB chunks and two rollbacks
     (flavors 1, 2) plus one by the eager step.
 
-    Prefill and decode are held where they compute the same function:
-    capacity depends on the token count (1,024 tokens in prefill, 8 in
-    decode), so sequences whose prefill dropped an assignment are left
-    out (the reference's semantics), and so are positions where bf16
-    rounding moved a token to another expert in some layer (a near tie
-    in the router, found by an eager decode pass that records its
-    routing).  Both counts are recorded."""
-    from repro_torch.kernels import _lib
+    Prefill and decode are held where they compute the same function
+    (:func:`routing_mask_of`): capacity depends on the token count (1,024
+    tokens in prefill, 8 in decode), so positions a dropped assignment
+    reaches are left out (the reference's semantics), and so are
+    positions that bf16 rounding moved to another expert (a near tie in
+    the router).  Layer 0's drops reach every later position of their
+    sequence through layer 1's attention."""
     from repro_torch.models import lm
     from repro_torch.models.config import get_config
     from repro_torch.optim.adamw import tree_leaves
@@ -1952,6 +2058,36 @@ def phase7b(torch, dev, workdir: Path) -> dict:
     n_bytes = sum(t.numel() * t.element_size() for t in leaves)
     print(f"phase7b {cfg.name}, first {MOE_LAYERS} of 32 layers: "
           f"{n_params} params, {n_bytes} bytes", flush=True)
+
+    rec = serve_cell(torch, dev, workdir, "phase7b", cfg, params,
+                     batch=MOE_BATCH, prompt=MOE_PROMPT, gen=MOE_GEN,
+                     chunk_bytes=SERVE_CHUNK, flavors=(1, 2),
+                     path_kernels=MOE_PATH_KERNELS,
+                     compare_mask=routing_mask_of(torch, cfg, params,
+                                                  "phase7b"),
+                     after_prefill=flash_launch_check(torch, "phase7b",
+                                                      cfg.n_layers))
+    rec["params"], rec["param_bytes"] = n_params, n_bytes
+    return rec
+
+
+def routing_mask_of(torch, cfg, params, tag: str):
+    """``compare_mask`` for an MoE model: the positions at which prefill and
+    decode compute the same function.  Capacity depends on the token
+    count (prefill drops assignments past it, decode at batch 8 never
+    does), and bf16 rounding can move a near tie in a router to another
+    expert; an eager decode pass records its routing.  A position is held
+    unless some MoE layer dropped an assignment of it, or routed it
+    otherwise than decode did — or did so at an earlier position of its
+    sequence, where an attention layer follows that MoE layer (causal
+    attention carries an earlier position's output forward; without a
+    later attention layer only the position's own routing reaches its
+    logits).  The counts are recorded and printed."""
+    from repro_torch.models import lm
+    flat = [spec for st in lm.build_stages(cfg) for _ in range(st.n_units)
+            for spec in st.unit]
+    carried = [any(s.kind == "attn" for s in flat[i + 1:])
+               for i, spec in enumerate(flat) if spec.ffn == "moe"]
 
     def routing_mask(prompts):
         b, s = prompts.shape
@@ -1966,37 +2102,149 @@ def phase7b(torch, dev, workdir: Path) -> dict:
                                {"tokens": prompts[:, t:t + 1], "index": t},
                                routes=routes)
                 dec.append(torch.stack([e[:, 0] for e, _ in routes]))
+            del caches
         dec = torch.stack(dec, dim=2)                    # [L, B, S, K]
         pre = torch.stack([e for e, _ in pre_routes])     # [L, B, S, K]
-        dropped = sum((~v).sum(dim=(1, 2)) for _, v in pre_routes)
-        agree = (dec.sort(-1).values == pre.sort(-1).values).all(-1).all(0)
-        clean = dropped == 0
+        differs = (dec.sort(-1).values != pre.sort(-1).values).any(-1)
+        dropped = torch.stack([(~v).any(-1) for _, v in pre_routes])
+        bad = torch.zeros((b, s), dtype=torch.bool, device=prompts.device)
+        for layer, later_attn in enumerate(carried):
+            bad_l = dropped[layer] | differs[layer]
+            if later_attn:
+                bad_l = bad_l.int().cummax(dim=1).values.bool()
+            bad |= bad_l
         info = {"capacity_prefill": moe_capacity(cfg, b * s),
                 "capacity_decode": moe_capacity(cfg, b),
-                "dropped_per_seq": dropped.tolist(),
-                "seqs_without_drops": int(clean.sum()),
-                "routing_differs_at": int((~agree).sum()),
-                "routing_differs_at_clean": int((~agree & clean[:, None])
-                                                .sum())}
-        print(f"phase7b routing: prefill capacity {info['capacity_prefill']}"
+                "dropped_per_seq": sum((~v).sum(dim=(1, 2))
+                                       for _, v in pre_routes).tolist(),
+                "dropped_positions": int(dropped.any(0).sum()),
+                "routing_differs_at": int(differs.any(0).sum()),
+                "moe_layers_followed_by_attention": carried,
+                "positions_held": int((~bad).sum())}
+        print(f"{tag} routing: prefill capacity {info['capacity_prefill']}"
               f" a expert ({b * s} tokens), decode {info['capacity_decode']};"
-              f" dropped assignments per sequence {info['dropped_per_seq']};"
-              f" routing differs from decode at {info['routing_differs_at']}"
-              f" of {b * s} positions", flush=True)
-        return clean[:, None] & agree, info
+              f" dropped assignments per sequence {info['dropped_per_seq']}"
+              f" (at {info['dropped_positions']} positions); routing "
+              f"differs from decode at {info['routing_differs_at']} of "
+              f"{b * s} positions; held {info['positions_held']}",
+              flush=True)
+        return ~bad, info
+    return routing_mask
 
-    def flash_launches(rec, logits):
+
+def flash_launch_check(torch, tag: str, n_launches: int):
+    """``after_prefill``: the prefill step launched flash ``n_launches``
+    times, all on the tc route (bf16)."""
+    from repro_torch.kernels import _lib
+
+    def after_prefill(rec, logits):
         rec["prefill_step_routes"] = _lib.route_launches()["flash_attention"]
-        check(rec["prefill_step_routes"] == {"tc": cfg.n_layers, "fma": 0},
-              f"phase7b prefill flash routes {rec['prefill_step_routes']}, "
-              f"want all {cfg.n_layers} on tc")
+        check(rec["prefill_step_routes"] == {"tc": n_launches, "fma": 0},
+              f"{tag} prefill flash routes {rec['prefill_step_routes']}, "
+              f"want all {n_launches} on tc")
+    return after_prefill
 
-    rec = serve_cell(torch, dev, workdir, "phase7b", cfg, params,
-                     batch=MOE_BATCH, prompt=MOE_PROMPT, gen=MOE_GEN,
-                     chunk_bytes=SERVE_CHUNK, flavors=(1, 2),
-                     path_kernels=MOE_PATH_KERNELS,
-                     compare_mask=routing_mask, after_prefill=flash_launches)
+
+# ---------------------------------------------------------------------------
+# Phase 7c: Cell G, MLA + MoE serving (deepseek-v3-671b, full width, 4 layers)
+# ---------------------------------------------------------------------------
+
+def phase7c(torch, dev, workdir: Path) -> dict:
+    """Cell G: deepseek-v3-671b at its published widths (MLA: 128 heads,
+    q_lora 1536, kv_lora 512, qk 128 + 64, v 128; 256 routed experts top-8
+    of d_ff 2048 plus one shared, capacity 1.25; dense-prefix d_ff 18432;
+    vocab 129280, untied; the MTP block, initialised and carried, unused
+    in serving), cut to its first MLA_LAYERS of 61 layers, through
+    :func:`serve_cell` at Cell F's traffic: flash prefill (q and k of 192,
+    v padded to 192, tc route), the decode loop filling the compressed
+    caches (``c_kv`` and ``k_rope``), a prefix commit in 16 KiB chunks,
+    flavors 1, 2, 1 and one generation by the eager step.  Prefill and
+    decode are held as in Cell F (:func:`routing_mask_of`)."""
+    from repro_torch.models import lm
+    from repro_torch.models.config import get_config
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("deepseek-v3-671b").replace(n_layers=MLA_LAYERS)
+    stages = [(st.n_units, [(u.kind, u.ffn) for u in st.unit])
+              for st in lm.build_stages(cfg)]
+    check(stages == [(3, [("attn", "dense")]), (1, [("attn", "moe")])],
+          f"phase7c stages {stages}")
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(n_params == MLA_PARAMS, f"phase7c: {n_params} parameters")
+    check("mtp" in params and all(t.is_cuda for t in leaves),
+          "phase7c: the MTP block and every parameter on the card")
+    print(f"phase7c {cfg.name}, first {MLA_LAYERS} of 61 layers: "
+          f"{n_params} params, {n_bytes} bytes (bf16, f32 routers); "
+          f"allocated {torch.cuda.memory_allocated()} bytes", flush=True)
+    rec = serve_cell(torch, dev, workdir, "phase7c", cfg, params,
+                     batch=MLA_BATCH, prompt=MLA_PROMPT, gen=MLA_GEN,
+                     chunk_bytes=SERVE_CHUNK, flavors=(1, 2, 1),
+                     path_kernels=MLA_PATH_KERNELS,
+                     compare_mask=routing_mask_of(torch, cfg, params,
+                                                  "phase7c"),
+                     after_prefill=flash_launch_check(torch, "phase7c",
+                                                      cfg.n_layers))
     rec["params"], rec["param_bytes"] = n_params, n_bytes
+    leaves = rec["cache_leaves"]
+    for i, n in ((0, 3), (1, 1)):
+        pre = f"caches/stages/stage_{i}/sub_0/attn"
+        check(leaves[f"{pre}/c_kv"] == [[n, MLA_BATCH, MLA_PROMPT + MLA_GEN,
+                                         512], "torch.bfloat16"]
+              and leaves[f"{pre}/k_rope"][0] == [
+                  n, MLA_BATCH, MLA_PROMPT + MLA_GEN, 1, 64],
+              f"phase7c: compressed caches {leaves}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 7d: Cell H, enc-dec serving (whisper-large-v3, full size)
+# ---------------------------------------------------------------------------
+
+def phase7d(torch, dev, workdir: Path) -> dict:
+    """Cell H: whisper-large-v3 at full size, nothing cut (32 encoder and
+    32 decoder layers, d_model 1280, 20 heads of 64, d_ff 5120, vocab 51866
+    padded to 51968, sinusoidal positions, cross-attention in every decoder
+    layer, bf16), through :func:`serve_cell`: the prefill step encodes
+    ENC_FRAMES seeded frame embeddings (flash, causal as in the JAX
+    package's encoder, S 1500: a ragged last tile) and runs the decoder on
+    a 16-token prompt; ``lm.encode`` writes ``enc_out`` [8, 1500, 1280]
+    into the caches once, before the prefix commit; the decode loop reads
+    it (K and V of every decoder layer's cross-attention recomputed from
+    it each step, as in the JAX package); flavors 1, 2, 1 and the eager
+    step, each from a rollback that reads no chunk of ``enc_out``."""
+    from repro_torch.models import lm
+    from repro_torch.models.config import get_config
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("whisper-large-v3")            # full size
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(n_params == ENC_PARAMS, f"phase7d: {n_params} parameters")
+    print(f"phase7d {cfg.name}: {n_params} params, {n_bytes} bytes",
+          flush=True)
+    frames = torch.randn((ENC_BATCH, ENC_FRAMES, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2)
+                         ).to(torch.bfloat16)
+    rec = serve_cell(torch, dev, workdir, "phase7d", cfg, params,
+                     batch=ENC_BATCH, prompt=ENC_PROMPT, gen=ENC_GEN,
+                     chunk_bytes=SERVE_CHUNK, flavors=(1, 2, 1),
+                     path_kernels=ENC_PATH_KERNELS,
+                     after_prefill=flash_launch_check(
+                         torch, "phase7d", cfg.n_encoder_layers
+                         + cfg.n_layers),
+                     enc_frames=frames)
+    rec["params"], rec["param_bytes"] = n_params, n_bytes
+    check(rec["cache_leaves"]["caches/enc_out"] == [
+        [ENC_BATCH, ENC_FRAMES, cfg.d_model], "torch.bfloat16"],
+        f"phase7d: enc_out {rec['cache_leaves']['caches/enc_out']}")
+    print(f"phase7d rollbacks read no chunk of enc_out: "
+          f"{ {k: v for k, v in rec.items() if k.endswith('_chunks_read')} }",
+          flush=True)
     return rec
 
 
@@ -2020,6 +2268,16 @@ def parse_args(argv):
     return args
 
 
+def free_card(torch) -> None:
+    """Between phases: collect the reference cycles a phase leaves (a
+    session's registered cells close over its caches and parameters), so
+    their tensors and CUDA graphs go now, then return the cached blocks
+    to the card.  Cells G and H need most of it."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def only_phases(torch, phases, root: Path) -> int:
     """Run ``phases`` alone, from the ``chip_smoke.py`` under ``root``
     (its ``src/`` is first on the path), and print each one's wall times
@@ -2039,7 +2297,7 @@ def only_phases(torch, phases, root: Path) -> int:
             rec = getattr(mod, name)(torch, dev, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
-        torch.cuda.empty_cache()
+        free_card(torch)
         times = {k: v for k, v in rec.items()
                  if k.endswith("_s") and isinstance(v, (int, float))}
         print(f"timed {name} {root} {json.dumps(times)}", flush=True)
@@ -2086,7 +2344,7 @@ def main() -> int:
     kernels = phase1(torch, dev)
     kernels.append(phase1_flash(torch, dev))
     record["phase1_s"] = time.perf_counter() - t0
-    torch.cuda.empty_cache()
+    free_card(torch)
     workdir = Path(tempfile.mkdtemp(prefix="kishu_smoke_"))
     try:
         t0 = time.perf_counter()
@@ -2094,9 +2352,9 @@ def main() -> int:
         record["phase2_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    torch.cuda.empty_cache()
+    free_card(torch)
     record["phase3"] = phase3(torch)
-    torch.cuda.empty_cache()
+    free_card(torch)
     workdir = Path(tempfile.mkdtemp(prefix="kishu_smoke_train_"))
     try:
         t0 = time.perf_counter()
@@ -2107,13 +2365,13 @@ def main() -> int:
                                     snap1)
         record["phase4b_s"] = time.perf_counter() - t0
         del snap1
-        torch.cuda.empty_cache()
+        free_card(torch)
         c = record["phase4"]["commits"]
         record["cli_phase4"] = cli_verbs(f"dir://{workdir}/train_cas",
                                          c[1], "cli phase4")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    torch.cuda.empty_cache()
+    free_card(torch)
     workdir = Path(tempfile.mkdtemp(prefix="kishu_smoke_serve_"))
     try:
         t0 = time.perf_counter()
@@ -2121,7 +2379,7 @@ def main() -> int:
         record["phase5_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    torch.cuda.empty_cache()
+    free_card(torch)
     workdir = Path(tempfile.mkdtemp(prefix="kishu_smoke_fabric_"))
     try:
         t0 = time.perf_counter()
@@ -2132,8 +2390,9 @@ def main() -> int:
                                          "cli phase6")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    for phase, fn in (("phase7", phase7), ("phase7b", phase7b)):
-        torch.cuda.empty_cache()
+    for phase, fn in (("phase7", phase7), ("phase7b", phase7b),
+                      ("phase7c", phase7c), ("phase7d", phase7d)):
+        free_card(torch)
         workdir = Path(tempfile.mkdtemp(prefix=f"kishu_smoke_{phase}_"))
         try:
             t0 = time.perf_counter()

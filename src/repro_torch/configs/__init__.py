@@ -1,13 +1,27 @@
-"""Architecture configs the port can run.  Importing this package registers
-them: the dense GQA decoders (``smollm-360m``, ``qwen3-1.7b``), Mamba-2/SSD
-(``mamba2-780m``), the MoE decoder (``phi3.5-moe-42b-a6.6b``) and the
-hybrid attention + SSM + MoE stack (``jamba-1.5-large-398b``).  The JAX
-package's other architectures (MLA with MTP, enc-dec, M-RoPE with the
-vision frontend, and the remaining dense configs) are not ported yet."""
+"""Architecture configs (copies of the JAX package's).  Importing this
+package registers all ten: the dense GQA decoders (``smollm-360m``,
+``qwen3-1.7b``, ``mistral-nemo-12b``, ``stablelm-12b``), Mamba-2/SSD
+(``mamba2-780m``), the MoE decoder (``phi3.5-moe-42b-a6.6b``), the hybrid
+attention + SSM + MoE stack (``jamba-1.5-large-398b``), MLA + MoE + MTP
+(``deepseek-v3-671b``), the encoder-decoder (``whisper-large-v3``) and
+M-RoPE over precomputed embeddings (``qwen2-vl-72b``).  The JAX package's
+``configs/shapes.py`` (input specs and sharding cells) belongs to
+distribution and is not copied."""
 from repro_torch.configs import (  # noqa: F401
-    jamba_1p5_large_398b,
     mamba2_780m,
-    phi35_moe_42b,
-    qwen3_1p7b,
+    stablelm_12b,
     smollm_360m,
+    mistral_nemo_12b,
+    qwen3_1p7b,
+    jamba_1p5_large_398b,
+    whisper_large_v3,
+    phi35_moe_42b,
+    deepseek_v3_671b,
+    qwen2_vl_72b,
 )
+
+ARCH_IDS = [
+    "mamba2-780m", "stablelm-12b", "smollm-360m", "mistral-nemo-12b",
+    "qwen3-1.7b", "jamba-1.5-large-398b", "whisper-large-v3",
+    "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "qwen2-vl-72b",
+]

@@ -1,5 +1,5 @@
-"""Batched serving launcher: prefill + greedy decode with KV/SSM caches,
-on a CUDA card (or the CPU, when asked).
+"""Batched serving launcher: prefill + greedy decode with KV, MLA latent or
+SSM caches, on a CUDA card (or the CPU, when asked).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --batch 8 --prompt-len 512 --gen 64
@@ -10,12 +10,17 @@ The flags are those of ``python -m repro.launch.serve``, plus ``--device``;
 the default architecture is the JAX launcher's, ``mamba2-780m``.  As
 there, the prompt is teacher-forced through the decode loop (one token
 per step fills the caches ``lm.init_caches`` built: KV for attention
-layers, conv and state for SSM layers), then ``--gen`` tokens are
-generated greedily, and the same line is printed.  The registered
-architectures are ``mamba2-780m``, ``smollm-360m``, ``qwen3-1.7b``,
-``phi3.5-moe-42b-a6.6b`` and ``jamba-1.5-large-398b`` (the last two fit
-one card only ``--reduced``).  Weights are random, drawn from seed 0;
-prompts from seed 1.
+layers, the compressed latent for MLA layers, conv and state for SSM
+layers), then ``--gen`` tokens are generated greedily, and the same line
+is printed.  An enc-dec model first encodes ``--prompt-len`` frames of
+seeded embeddings into the caches' ``enc_out``; the vision frontend's
+model decodes from embeddings (its token's row of the embedding table).
+Every registered architecture runs: ``mamba2-780m``, ``stablelm-12b``,
+``smollm-360m``, ``mistral-nemo-12b``, ``qwen3-1.7b``,
+``jamba-1.5-large-398b``, ``whisper-large-v3``, ``phi3.5-moe-42b-a6.6b``,
+``deepseek-v3-671b`` and ``qwen2-vl-72b`` (the ones over ~30 B
+parameters fit one card only ``--reduced``).  Weights are random, drawn
+from seed 0; prompts from seed 1, encoder frames from seed 2.
 """
 from __future__ import annotations
 
@@ -59,14 +64,24 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     prompts = torch.randint(0, cfg.vocab_size, (b, plen), dtype=torch.int32,
                             generator=torch.Generator().manual_seed(1)
                             ).to(device)
-    caches = lm.init_caches(cfg, b, total, device=device)
+    caches = lm.init_caches(cfg, b, total, device=device,
+                            enc_seq=plen if cfg.enc_dec else 0)
+    if cfg.enc_dec:
+        enc = torch.randn((b, plen, cfg.d_model),
+                          generator=torch.Generator().manual_seed(2))
+        with torch.no_grad():
+            caches["enc_out"] = lm.encode(cfg, params, {"enc_embeds": enc})
 
     # prefill via decode loop (teacher-forcing the prompt)
     t0 = time.monotonic()
     tok = prompts[:, :1]
     out_tokens = [tok]
     for t in range(total - 1):
-        nxt, caches = decode(params, caches, {"tokens": tok, "index": t})
+        batch = {"tokens": tok, "index": t}
+        if cfg.frontend == "vision":
+            batch = {"embeds": params["embed"][tok[:, 0].long()][:, None, :],
+                     "index": t}
+        nxt, caches = decode(params, caches, batch)
         tok = prompts[:, t + 1:t + 2] if t + 1 < plen else nxt
         out_tokens.append(tok)
     gen = torch.cat(out_tokens, dim=1).cpu()

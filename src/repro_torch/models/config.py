@@ -1,12 +1,13 @@
 """Architecture configuration system (a copy of the JAX package's).
 
 One frozen dataclass describes every architecture; the LM in ``lm.py``
-interprets it.  Configs are pure data.  The port's ``lm.py`` runs the dense
-family (GQA, optional qk-norm, SwiGLU, tied or untied unembed), Mamba-2/SSD
-layers, MoE feed-forwards and hybrid stacks of them, with RoPE or
-sinusoidal positions; it raises ``NotImplementedError`` for MLA, enc-dec,
-M-RoPE, frontends and MTP.  ``configs`` registers only the architectures
-the port can run.
+interprets it.  Configs are pure data.  The port's ``lm.py`` runs every
+architecture the JAX package runs: GQA (optional qk-norm, RoPE, M-RoPE or
+sinusoidal positions) and MLA attention, Mamba-2/SSD layers, SwiGLU and
+MoE feed-forwards, hybrid stacks, the encoder-decoder with
+cross-attention, precomputed input embeddings (the stubbed audio and
+vision frontends) and the MTP block.  ``configs`` registers all ten
+architectures.
 """
 from __future__ import annotations
 

@@ -1,8 +1,10 @@
-"""Core neural layers: RMSNorm, RoPE, GQA attention (full sequence and
-one-token decode against a KV cache) and the gated MLP, as plain functions
-on tensors (the port of the JAX package's ``models/layers.py``; MLA, M-RoPE
-and cross-attention are not ported yet).  Parameters are nested dicts of
-tensors with the JAX package's names, shapes and layouts.
+"""Core neural layers: RMSNorm, RoPE (standard and M-RoPE), GQA attention
+(full sequence and one-token decode against a KV cache), the decoder's
+cross-attention, MLA attention (DeepSeek-V3: full sequence and decode
+against the compressed latent cache) and the gated MLP, as plain
+functions on tensors (the port of the JAX package's ``models/layers.py``).
+Parameters are nested dicts of tensors with the JAX package's names,
+shapes and layouts.
 
 Conventions
 -----------
@@ -36,13 +38,6 @@ def einsum_f32(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     """``einsum`` with float32 operands and result (the JAX package's
     ``preferred_element_type=jnp.float32`` on bf16 or f32 inputs)."""
     return torch.einsum(eq, *[o.float() for o in ops])
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue A, "
-        f"remaining workloads: MLA with MTP, enc-dec, M-RoPE and the "
-        f"vision frontend)")
 
 
 # ---------------------------------------------------------------------------
@@ -106,12 +101,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     """Standard rotary embedding (half-split rotation, float32 angles).
     x: [B,S,H,hd]; positions: [B,S] (int)."""
     freqs = rope_table(x.shape[-1], float(theta), x.device)
-    ang = positions[..., None].float() * freqs                  # [B,S,hd/2]
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """The half-split rotation of x [B,S,H,hd] by float32 angles
+    [B,S,hd/2], shared by every head."""
     cos = torch.cos(ang)[:, :, None, :]                         # [B,S,1,hd/2]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def mrope_section_ids(sections: Tuple[int, int, int], device: torch.device
+                      ) -> torch.Tensor:
+    """Which of the (t, h, w) position ids rotates each of the head_dim/2
+    frequency bands: ``[0]*t + [1]*h + [2]*w`` (int64), built once per
+    (sections, device), as :func:`rope_table` is."""
+    return torch.tensor(np.repeat(np.arange(3), np.asarray(sections)),
+                        dtype=torch.int64, device=device)
+
+
+def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the head_dim/2 frequency bands are split
+    into (t, h, w) sections, each rotated by its own position id.
+
+    x: [B,S,H,hd]; positions_thw: [B,S,3] (int); sections sum to hd//2."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to head "
+                         f"dim {hd} / 2")
+    freqs = rope_table(hd, float(theta), x.device)
+    sect = mrope_section_ids(tuple(sections), x.device)
+    return _rotate(x, positions_thw.float()[..., sect] * freqs)
 
 
 # ---------------------------------------------------------------------------
@@ -184,8 +209,9 @@ def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
     if cfg.rope_type == "standard":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope_type != "none":
-        raise not_ported(f"rope_type={cfg.rope_type!r} (M-RoPE)")
+    elif cfg.rope_type == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 
@@ -240,6 +266,152 @@ def gqa_cache_init(cfg: ArchConfig, batch: int, seq: int,
                          dtype=dtype, device=device),
         "v": torch.zeros((*lead, batch, seq, cfg.n_kv_heads, hd),
                          dtype=dtype, device=device),
+        "index": torch.zeros(tuple(lead), dtype=torch.int32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# cross attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attn_init(gen: torch.Generator, cfg: ArchConfig,
+                    dtype: torch.dtype, lead: Shape = ()) -> dict:
+    return gqa_init(gen, cfg.replace(qk_norm=False), dtype, lead)
+
+
+def cross_attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                       enc_out: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention over the encoder output (no RoPE, no mask).
+    x: [B,S,d], enc_out: [B,S_enc,d] -> [B,S,d].  Query and key lengths
+    differ, which the flash kernel's contract does not take; the JAX
+    package runs this attention in plain XLA too, so it goes through
+    :func:`attention_core` in prefill, decode and training alike.  K and
+    V are projected from ``enc_out`` on every call, as in the JAX
+    package."""
+    q = einsum_f32("bsd,dhk->bshk", x, p["wq"]).to(x.dtype)
+    k = einsum_f32("bsd,dhk->bshk", enc_out, p["wk"]).to(x.dtype)
+    v = einsum_f32("bsd,dhk->bshk", enc_out, p["wv"]).to(x.dtype)
+    out = attention_core(q, k, v, causal=False)
+    return einsum_f32("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+             lead: Shape = ()) -> dict:
+    m, d, nq = cfg.mla, cfg.d_model, cfg.n_heads
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": dense_param(gen, d, m.q_lora_rank, dtype, lead),
+        "q_a_norm": rmsnorm_init(m.q_lora_rank, dtype, gen.device, lead),
+        "wq_b": dense_param(gen, m.q_lora_rank, (nq, qk_hd), dtype, lead),
+        # kv down-projection -> compressed latent + decoupled rope key
+        "wkv_a": dense_param(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                             dtype, lead),
+        "kv_a_norm": rmsnorm_init(m.kv_lora_rank, dtype, gen.device, lead),
+        "wkv_b": dense_param(gen, m.kv_lora_rank,
+                             (nq, m.qk_nope_head_dim + m.v_head_dim), dtype,
+                             lead),
+        "wo": _dense_init(gen, (nq, m.v_head_dim, d), nq * m.v_head_dim,
+                          dtype, lead),
+    }
+
+
+def _mla_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    """(q_nope [B,S,H,nope], q_rope [B,S,H,rope], c_kv [B,S,r],
+    k_rope [B,S,1,rope]): the query through its low-rank pair, the
+    compressed latent and the one decoupled RoPE key head."""
+    m = cfg.mla
+    q_lat = einsum_f32("bsd,dr->bsr", x, p["wq_a"]).to(x.dtype)
+    q_lat = rmsnorm(p["q_a_norm"], q_lat, cfg.norm_eps)
+    q = einsum_f32("bsr,rhk->bshk", q_lat, p["wq_b"]).to(x.dtype)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim],
+                             dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv = einsum_f32("bsd,dr->bsr", x, p["wkv_a"]).to(x.dtype)
+    c_kv, k_rope = kv.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv = rmsnorm(p["kv_a_norm"], c_kv, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(p: dict, cfg: ArchConfig, q_nope: torch.Tensor,
+                q_rope: torch.Tensor, c_kv: torch.Tensor,
+                k_rope: torch.Tensor, *, q_offset=0, flash: bool = False
+                ) -> torch.Tensor:
+    """Attention in the latent space: the whole of ``c_kv`` expanded to
+    per-head k_nope and v through ``wkv_b`` (as the JAX package does, on
+    every call), the RoPE key broadcast over heads, scale
+    1/sqrt(nope + rope).  Returns [B,S,H,v_head_dim].
+
+    ``flash=True`` (the prefill) sends it through ``kernels.flash_attention``,
+    whose contract wants k and v of one shape and scales by 1/sqrt of
+    q's head dim: v is zero-padded to the qk head dim (192 for
+    deepseek-v3), so the kernel's scale is MLA's and the padded columns
+    of its output are zeros, which are sliced away."""
+    m, nq = cfg.mla, cfg.n_heads
+    kv = einsum_f32("bsr,rhk->bshk", c_kv, p["wkv_b"]).to(c_kv.dtype)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    b, s = k_rope.shape[:2]
+    k = torch.cat([k_nope, k_rope.expand(b, s, nq, m.qk_rope_head_dim)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if not flash:
+        return attention_core(q, k, v, causal=True, q_offset=q_offset,
+                              softmax_scale=1.0 / np.sqrt(qk_hd))
+    if m.v_head_dim > qk_hd:
+        raise ValueError(f"MLA prefill: v head dim {m.v_head_dim} exceeds "
+                         f"the qk head dim {qk_hd}; the flash kernel's "
+                         f"scale would not be MLA's")
+    v = F.pad(v, (0, qk_hd - m.v_head_dim))
+    return flash_attention(q, k, v, causal=True)[..., :m.v_head_dim]
+
+
+def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, training: bool = False
+                ) -> torch.Tensor:
+    """Full MLA self-attention (train / prefill). Returns [B,S,d].
+    ``training=True`` keeps :func:`attention_core`; the inference forward
+    goes through the flash kernel with v padded (:func:`_mla_attend`)."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    out = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope,
+                      flash=not training)
+    return einsum_f32("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
+
+
+def mla_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
+               positions: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """One-token decode against the *compressed* MLA cache, updated in
+    place: {"c_kv": [B,S,r], "k_rope": [B,S,1,rope], "index": 0-d int32}.
+    The new latent row and RoPE key are cast to the cache dtype and written
+    at ``index`` (``index_copy_``, no host sync); attention runs over the
+    whole cache, expanded through ``wkv_b``, masked causally at
+    ``q_offset=index``; then ``index`` moves by one."""
+    q_nope, q_rope, c_new, kr_new = _mla_qkv(p, cfg, x, positions)
+    idx = cache["index"]
+    slot = idx.reshape(1).long()
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    c_kv.index_copy_(1, slot, c_new.to(c_kv.dtype))
+    k_rope.index_copy_(1, slot, kr_new.to(k_rope.dtype))
+    out = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, q_offset=idx)
+    y = einsum_f32("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
+    idx.add_(1)
+    return y, cache
+
+
+def mla_cache_init(cfg: ArchConfig, batch: int, seq: int,
+                   dtype: torch.dtype, device, lead: Shape = ()) -> dict:
+    """Zeroed compressed cache (the JAX package's leaves)."""
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((*lead, batch, seq, m.kv_lora_rank),
+                            dtype=dtype, device=device),
+        "k_rope": torch.zeros((*lead, batch, seq, 1, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
         "index": torch.zeros(tuple(lead), dtype=torch.int32, device=device),
     }
 

@@ -8,19 +8,24 @@ same tensors.  Where the JAX package scans over units, the port runs a
 Python loop over ``unbind(0)`` of each stacked leaf (one stacking op in the
 backward pass).
 
-What runs: GQA attention (standard RoPE, optional per-head qk-norm) and
-Mamba-2/SSD layers (``models/mamba.py``), each followed by a SwiGLU MLP, an
-MoE feed-forward (``models/moe.py``) or nothing, in any periodic stack the
-config describes (dense, ``ssm``, ``moe`` and ``hybrid`` families), with
-RoPE or sinusoidal positions (``rope_type="none"``), RMSNorm and the tied
-or untied unembed.  MLA, enc-dec, M-RoPE, frontends and MTP raise
-``NotImplementedError``.
+What runs: every architecture the JAX package runs.  GQA attention
+(standard RoPE, M-RoPE or sinusoidal positions, optional per-head
+qk-norm), MLA attention (DeepSeek-V3's compressed latent) and Mamba-2/SSD
+layers (``models/mamba.py``), each followed by a SwiGLU MLP, an MoE
+feed-forward (``models/moe.py``) or nothing, in any periodic stack the
+config describes; the encoder-decoder (a causal encoder over precomputed
+frame embeddings, as in the JAX package, and cross-attention in every
+decoder layer); precomputed input embeddings (the stubbed frontends);
+the MTP block's t+2 logits in training; RMSNorm and the tied or untied
+unembed.
 
 Serving: :func:`forward` with ``training=False`` (the default, as in the
 JAX package) is the prefill, whose attention goes through the flash
 kernel; :func:`init_caches` and :func:`decode_step` run one-token decode
-against KV and SSM caches stacked ``[n_units, ...]`` per stage, exactly as
-the JAX package's ``vmap`` lays them out, and updated in place.
+against KV, MLA latent and SSM caches stacked ``[n_units, ...]`` per
+stage, exactly as the JAX package's ``vmap`` lays them out, and updated in
+place; an enc-dec model's caches carry ``enc_out``, which decode reads and
+never writes.
 """
 from __future__ import annotations
 
@@ -93,17 +98,9 @@ def build_stages(cfg: ArchConfig, *, decoder: bool = True) -> List[StageSpec]:
     return stages
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for any feature of ``cfg`` the port does not run yet."""
-    for present, what in (
-            (cfg.mla is not None, "MLA attention"),
-            (cfg.enc_dec, "enc-dec / cross-attention"),
-            (cfg.rope_type not in ("standard", "none"),
-             f"rope_type={cfg.rope_type!r} (M-RoPE)"),
-            (cfg.frontend is not None, f"the {cfg.frontend} frontend"),
-            (cfg.mtp, "multi-token prediction")):
-        if present:
-            raise layers.not_ported(f"{cfg.name}: {what}")
+def encoder_stages(cfg: ArchConfig) -> List[StageSpec]:
+    n_enc = cfg.n_encoder_layers or cfg.n_layers
+    return [StageSpec((LayerSpec("attn", "dense", cross=False),), n_enc)]
 
 
 # ---------------------------------------------------------------------------
@@ -116,9 +113,13 @@ def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
     p: Dict[str, Any] = {"norm1": layers.rmsnorm_init(d, dtype, gen.device,
                                                       lead)}
     if spec.kind == "attn":
-        p["attn"] = layers.gqa_init(gen, cfg, dtype, lead)
+        init = layers.mla_init if cfg.mla is not None else layers.gqa_init
+        p["attn"] = init(gen, cfg, dtype, lead)
     else:
         p["ssm"] = mamba.ssm_init(gen, cfg, dtype, lead)
+    if spec.cross:
+        p["cross_norm"] = layers.rmsnorm_init(d, dtype, gen.device, lead)
+        p["cross"] = layers.cross_attn_init(gen, cfg, dtype, lead)
     if spec.ffn == "dense":
         p["norm2"] = layers.rmsnorm_init(d, dtype, gen.device, lead)
         p["mlp"] = layers.mlp_init(gen, d, cfg.d_ff, dtype, lead)
@@ -139,8 +140,10 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
                 dtype: torch.dtype | None = None) -> dict:
     """Parameters drawn from ``gen`` on its device: the JAX package's
     distributions (normal x 0.02 embedding, uniform +-1/sqrt(fan_in)
-    products, unit norms), not its values."""
-    check_supported(cfg)
+    products, unit norms), not its values.  Enc-dec models get an
+    ``encoder`` (``final_norm``, ``stages``), MTP models an ``mtp`` block
+    (``proj [2d, d]``, ``norm``, ``block``: one unstacked dense attention
+    layer), as in the JAX package."""
     dtype = dtype or torch_dtype(cfg.dtype)
     d = cfg.d_model
     embed = (torch.empty((cfg.padded_vocab, d), dtype=torch.float32,
@@ -156,6 +159,17 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_param(gen, d, cfg.padded_vocab,
                                                dtype)
+    if cfg.enc_dec:
+        params["encoder"] = {
+            "final_norm": layers.rmsnorm_init(d, dtype, gen.device),
+            "stages": {f"stage_{i}": _init_stage(gen, cfg, stage, dtype)
+                       for i, stage in enumerate(encoder_stages(cfg))}}
+    if cfg.mtp:
+        params["mtp"] = {
+            "proj": layers.dense_param(gen, 2 * d, d, dtype),
+            "norm": layers.rmsnorm_init(d, dtype, gen.device),
+            "block": _init_layer(gen, cfg, LayerSpec("attn", "dense"),
+                                 dtype)}
     # tied-embedding aliasing is realised at the state level (the training
     # state exposes `lm_head` as the same tensor as `embed`); inside the
     # model we read cfg.tie_embeddings.
@@ -168,9 +182,16 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 
 def _positions_of(batch: dict, cfg: ArchConfig, seq: int, bsz: int,
                   offset: int = 0, device=None) -> torch.Tensor:
+    """[B,S] int32 positions; M-RoPE models take ``batch["positions_thw"]``
+    [B,S,3] where given, else the text positions stacked three times."""
+    if cfg.rope_type == "mrope" and "positions_thw" in batch:
+        return batch["positions_thw"]
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] \
         + offset
-    return pos.expand(bsz, seq)
+    pos = pos.expand(bsz, seq)
+    if cfg.rope_type == "mrope":
+        return torch.stack([pos, pos, pos], dim=-1)
+    return pos
 
 
 def _sinusoidal_embed(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -199,20 +220,27 @@ def _add_positions(cfg: ArchConfig, x: torch.Tensor,
 
 
 def _apply_layer(p: dict, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor,
-                 positions: torch.Tensor, *, training: bool = False,
+                 positions: torch.Tensor, *,
+                 enc_out: Optional[torch.Tensor] = None,
+                 training: bool = False,
                  routes: Optional[List[moe_lib.Route]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence layer: attention or SSM, then the gated MLP or the MoE
+    """Full-sequence layer: attention (GQA or MLA) or SSM, cross-attention
+    over ``enc_out`` in an enc-dec decoder, then the gated MLP or the MoE
     feed-forward, each residual.  Returns (x, the MoE aux loss: a float32
     zero for other layers); ``routes`` collects an MoE layer's routing
     (:func:`moe.moe_forward`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.kind == "attn":
-        x = x + layers.gqa_forward(p["attn"], cfg, h, positions,
-                                   training=training)
+        attn = layers.mla_forward if cfg.mla is not None \
+            else layers.gqa_forward
+        x = x + attn(p["attn"], cfg, h, positions, training=training)
     else:
         x = x + mamba.ssm_forward(p["ssm"], cfg, h)
+    if spec.cross:
+        h = layers.rmsnorm(p["cross_norm"], x, cfg.norm_eps)
+        x = x + layers.cross_attn_forward(p["cross"], cfg, h, enc_out)
     if spec.ffn == "dense":
         h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
         x = x + layers.mlp_forward(p["mlp"], h)
@@ -238,7 +266,8 @@ def _unstack(tree: Any, n: int) -> List[Any]:
 
 def _run_stages(stages_params: dict, stage_specs: List[StageSpec],
                 cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
-                *, training: bool = False,
+                *, enc_out: Optional[torch.Tensor] = None,
+                training: bool = False,
                 routes: Optional[List[moe_lib.Route]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All stages in order.  Returns (x, the MoE aux loss summed over
@@ -249,8 +278,8 @@ def _run_stages(stages_params: dict, stage_specs: List[StageSpec],
         for unit_params in units:
             for j, spec in enumerate(stage.unit):
                 x, aux = _apply_layer(unit_params[f"sub_{j}"], cfg, spec, x,
-                                      positions, training=training,
-                                      routes=routes)
+                                      positions, enc_out=enc_out,
+                                      training=training, routes=routes)
                 aux_total = aux_total + aux
     return x, aux_total
 
@@ -260,8 +289,10 @@ def _run_stages(stages_params: dict, stage_specs: List[StageSpec],
 # ---------------------------------------------------------------------------
 
 def embed_inputs(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Token embeddings, or ``batch["embeds"]`` (the stubbed frontends'
+    precomputed embeddings) cast to the config's dtype."""
     if "embeds" in batch:
-        raise layers.not_ported("precomputed input embeddings (frontends)")
+        return batch["embeds"].to(torch_dtype(cfg.dtype))
     return params["embed"][batch["tokens"].long()]
 
 
@@ -270,30 +301,78 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *,
             routes: Optional[List[moe_lib.Route]] = None):
     """Full-sequence forward. Returns float32 logits [B,S,V] (and an aux
     dict: ``moe_aux``, the MoE load-balance loss summed over layers — a
-    float32 zero without MoE layers).  Where ``routes`` is a list, each
-    MoE layer appends its routing to it (:func:`moe.moe_forward`).
+    float32 zero without MoE layers — and, for an MTP model with
+    ``training=True``, ``mtp_logits``, the t+2 logits).  Where ``routes``
+    is a list, each MoE layer appends its routing to it
+    (:func:`moe.moe_forward`).  An enc-dec model encodes
+    ``batch["enc_embeds"]`` first (:func:`encode`).
 
     ``training=False`` (the prefill) sends attention through the flash
     kernel, which is forward-only; ``training=True`` keeps the plain
     attention that autograd differentiates."""
-    check_supported(cfg)
     x = embed_inputs(cfg, params, batch)
     bsz, seq, _ = x.shape
     positions = _positions_of(batch, cfg, seq, bsz, device=x.device)
     x = _add_positions(cfg, x, positions)
+    enc_out = encode(cfg, params, batch, training=training) \
+        if cfg.enc_dec else None
     x, aux = _run_stages(params["stages"], build_stages(cfg), cfg, x,
-                         positions, training=training, routes=routes)
+                         positions, enc_out=enc_out, training=training,
+                         routes=routes)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(cfg, params, x)
-    if return_aux:
-        return logits, {"moe_aux": aux}
-    return logits
+    if not return_aux:
+        return logits
+    aux_d = {"moe_aux": aux}
+    if cfg.mtp and training:
+        aux_d["mtp_logits"] = _mtp_logits(cfg, params, x, batch, positions)
+    return logits, aux_d
+
+
+def encode(cfg: ArchConfig, params: dict, batch: dict, *,
+           training: bool = False) -> torch.Tensor:
+    """The encoder of an enc-dec model: ``batch["enc_embeds"]`` [B,S_enc,d]
+    (precomputed frame embeddings, moved to the parameters' device) plus
+    sinusoidal positions, through the encoder stack, then its final norm.
+    Returns [B,S_enc,d] in the config's dtype.
+
+    The stack is **causal**, as the JAX package's encoder is
+    (``_apply_layer`` keeps its attention's causal default): whisper's
+    encoder is bidirectional, but the port is held to the reference's
+    logits and stored bytes.  ``training=False`` runs the flash kernel."""
+    enc = params["encoder"]
+    enc_x = batch["enc_embeds"].to(device=enc["final_norm"]["scale"].device,
+                                   dtype=torch_dtype(cfg.dtype))
+    bsz, s_enc, d = enc_x.shape
+    pos = torch.arange(s_enc, dtype=torch.int32,
+                       device=enc_x.device)[None, :].expand(bsz, s_enc)
+    enc_x = (enc_x.float() + _sinusoidal_embed(pos, d)).to(enc_x.dtype)
+    enc_x, _ = _run_stages(enc["stages"], encoder_stages(cfg), cfg, enc_x,
+                           pos, training=training)
+    return layers.rmsnorm(enc["final_norm"], enc_x, cfg.norm_eps)
 
 
 def unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings or "lm_head" not in params:
         return layers.einsum_f32("bsd,vd->bsv", x, params["embed"])
     return layers.einsum_f32("bsd,dv->bsv", x, params["lm_head"])
+
+
+def _mtp_logits(cfg: ArchConfig, params: dict, h_final: torch.Tensor,
+                batch: dict, positions: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3-style multi-token prediction: one extra dense attention
+    block predicts token t+2 from [norm(h_t) ; embed(token_{t+1})].
+    ``h_final`` is the final-normed hidden state; the next-token shift
+    repeats the last token, as in the JAX package."""
+    mtp = params["mtp"]
+    tok = batch["tokens"].long()
+    nxt = torch.cat([tok[:, 1:], tok[:, -1:]], dim=1)
+    h = torch.cat([layers.rmsnorm(mtp["norm"], h_final, cfg.norm_eps),
+                   params["embed"][nxt]], dim=-1)
+    h = layers.einsum_f32("bsk,kd->bsd", h, mtp["proj"]).to(h_final.dtype)
+    h, _ = _apply_layer(mtp["block"], cfg, LayerSpec("attn", "dense"), h,
+                        positions, training=True)
+    return unembed(cfg, params, h)
 
 
 # ---------------------------------------------------------------------------
@@ -303,40 +382,52 @@ def unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 def _init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
                       seq: int, dtype: torch.dtype, device, lead=()) -> dict:
     if spec.kind == "attn":
-        return {"attn": layers.gqa_cache_init(cfg, batch, seq, dtype, device,
-                                              lead)}
+        init = layers.mla_cache_init if cfg.mla is not None \
+            else layers.gqa_cache_init
+        return {"attn": init(cfg, batch, seq, dtype, device, lead)}
     return {"ssm": mamba.ssm_cache_init(cfg, batch, dtype, device, lead)}
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq: int,
-                dtype: torch.dtype | None = None, device=None) -> dict:
+                dtype: torch.dtype | None = None, device=None,
+                enc_seq: int = 0) -> dict:
     """Cache tree: per stage, leaves stacked along ``n_units`` (the JAX
-    package's names, shapes and dtypes: KV with an int32 ``index`` for
-    attention layers, ``conv`` and float32 ``state`` for SSM layers), on
-    ``device`` (``cuda`` unless the caller names another).  The MLA and
-    enc-dec (``enc_out``) caches raise with the rest of their families
-    (:func:`check_supported`)."""
-    check_supported(cfg)
+    package's names, shapes and dtypes: KV with an int32 ``index`` for GQA
+    layers, the compressed ``c_kv`` and ``k_rope`` for MLA layers, ``conv``
+    and float32 ``state`` for SSM layers), on ``device`` (``cuda`` unless
+    the caller names another).  An enc-dec model's tree also holds
+    ``enc_out`` [batch, enc_seq or seq, d_model], zeroed: the caller writes
+    :func:`encode`'s output into it."""
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
-    return {"stages": {
+    caches: Dict[str, Any] = {"stages": {
         f"stage_{i}": {f"sub_{j}": _init_layer_cache(
             cfg, spec, batch, seq, dtype, device, lead=(stage.n_units,))
             for j, spec in enumerate(stage.unit)}
         for i, stage in enumerate(build_stages(cfg))}}
+    if cfg.enc_dec:
+        caches["enc_out"] = torch.zeros((batch, enc_seq or seq, cfg.d_model),
+                                        dtype=dtype, device=device)
+    return caches
 
 
 def _decode_layer(p: dict, c: dict, cfg: ArchConfig, spec: LayerSpec,
                   x: torch.Tensor, positions: torch.Tensor,
-                  routes: Optional[List[moe_lib.Route]] = None) -> torch.Tensor:
+                  routes: Optional[List[moe_lib.Route]] = None,
+                  enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One layer of one-token decode; ``c`` (the layer's cache) is updated
-    in place."""
+    in place; ``enc_out`` is only read."""
     h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.kind == "attn":
-        y, _ = layers.gqa_decode(p["attn"], cfg, h, c["attn"], positions)
+        dec = layers.mla_decode if cfg.mla is not None \
+            else layers.gqa_decode
+        y, _ = dec(p["attn"], cfg, h, c["attn"], positions)
     else:
         y, _ = mamba.ssm_decode(p["ssm"], cfg, h, c["ssm"])
     x = x + y
+    if spec.cross:
+        h = layers.rmsnorm(p["cross_norm"], x, cfg.norm_eps)
+        x = x + layers.cross_attn_forward(p["cross"], cfg, h, enc_out)
     if spec.ffn == "dense":
         h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
         x = x + layers.mlp_forward(p["mlp"], h)
@@ -349,11 +440,12 @@ def _decode_layer(p: dict, c: dict, cfg: ArchConfig, spec: LayerSpec,
 def decode_step(cfg: ArchConfig, params: dict, caches: dict, batch: dict,
                 *, routes: Optional[List[moe_lib.Route]] = None
                 ) -> Tuple[torch.Tensor, dict]:
-    """One-token decode. batch: {"tokens": [B,1], "index": the cache fill
-    (an int or a 0-d int tensor)}.  Returns (float32 logits [B,1,V],
-    caches): the caches are the same tensors, updated in place.  Where
-    ``routes`` is a list, each MoE layer appends its routing to it."""
-    check_supported(cfg)
+    """One-token decode. batch: {"tokens": [B,1] (or "embeds": [B,1,d]),
+    "index": the cache fill (an int or a 0-d int tensor)}.  Returns
+    (float32 logits [B,1,V], caches): the caches are the same tensors,
+    updated in place (an enc-dec model's ``enc_out`` is read, never
+    written).  Where ``routes`` is a list, each MoE layer appends its
+    routing to it."""
     x = embed_inputs(cfg, params, batch)
     bsz = x.shape[0]
     index = batch["index"]
@@ -363,12 +455,15 @@ def decode_step(cfg: ArchConfig, params: dict, caches: dict, batch: dict,
         torch.full((), int(index), dtype=torch.int32, device=x.device)
     positions = index.reshape(1, 1).expand(bsz, 1)
     x = _add_positions(cfg, x, positions)
+    if cfg.rope_type == "mrope":
+        positions = torch.stack([positions, positions, positions], dim=-1)
+    enc_out = caches.get("enc_out")
     for i, stage in enumerate(build_stages(cfg)):
         units_p = _unstack(params["stages"][f"stage_{i}"], stage.n_units)
         units_c = _unstack(caches["stages"][f"stage_{i}"], stage.n_units)
         for unit_p, unit_c in zip(units_p, units_c):
             for j, spec in enumerate(stage.unit):
                 x = _decode_layer(unit_p[f"sub_{j}"], unit_c[f"sub_{j}"],
-                                  cfg, spec, x, positions, routes)
+                                  cfg, spec, x, positions, routes, enc_out)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(cfg, params, x), caches

@@ -54,12 +54,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (logz - gold).mean()
 
 
-def make_loss_fn(cfg: ArchConfig, *, moe_aux_coef: float = 0.01):
+def make_loss_fn(cfg: ArchConfig, *, moe_aux_coef: float = 0.01,
+                 mtp_coef: float = 0.1):
+    """``loss_fn(params, batch) -> (total, {"loss", "moe_aux"})``: the
+    token cross-entropy, plus ``moe_aux_coef`` times the MoE aux loss, plus
+    for an MTP model ``mtp_coef`` times the t+2 cross-entropy (labels
+    shifted by one more, the last repeated), as in the JAX package."""
     def loss_fn(params, batch):
         logits, aux = lm.forward(cfg, params, batch, training=True,
                                  return_aux=True)
         loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
         total = loss + moe_aux_coef * aux["moe_aux"]
+        if "mtp_logits" in aux:
+            lbl = batch["labels"]
+            lbl2 = torch.cat([lbl[:, 1:], lbl[:, -1:]], dim=1)
+            total = total + mtp_coef * cross_entropy(
+                aux["mtp_logits"], lbl2, cfg.vocab_size)
         return total, {"loss": loss, "moe_aux": aux["moe_aux"]}
     return loss_fn
 
@@ -73,7 +83,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     batch splits on its leading axis (which it must divide), float32
     gradients are summed over the microbatches in order, and the gradients,
     ``total`` and the aux metrics are scaled by ``1/microbatches`` before
-    the one AdamW update."""
+    the one AdamW update.  An MTP model's t+2 loss is part of ``total``
+    in each microbatch, as the MoE aux loss is."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     loss_fn = make_loss_fn(cfg, moe_aux_coef=moe_aux_coef)
@@ -128,7 +139,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
 def make_prefill_step(cfg: ArchConfig):
     """``prefill_step(params, batch) -> logits [B,S,V]`` (float32,
     sampling-ready): the inference forward under ``no_grad``, whose
-    attention is the flash kernel on the card."""
+    attention is the flash kernel on the card.  The batch passes through
+    whole: ``tokens`` or ``embeds``, ``positions_thw`` (M-RoPE) and
+    ``enc_embeds`` (enc-dec, encoded in the same call)."""
     def prefill_step(params, batch):
         with torch.no_grad():
             return lm.forward(cfg, params, batch, training=False)
@@ -154,6 +167,11 @@ def make_decode_step(cfg: ArchConfig):
     return serve_step
 
 
+# the batch's inputs a graphed step reads from static buffers: token ids,
+# or the precomputed embeddings of a frontend model
+_GRAPH_INPUTS = ("tokens", "embeds")
+
+
 class GraphedDecodeStep:
     """The greedy decode step replayed from a CUDA graph: the port's
     counterpart of the JAX package's ``jax.jit(make_decode_step(cfg))``.
@@ -164,12 +182,16 @@ class GraphedDecodeStep:
     step (about 20,000 eager calls at SmolLM-360M) is captured once into a
     CUDA graph and replayed:
 
-    - the graph reads a static ``[B,1]`` int32 token buffer and a static
-      0-d int32 index, filled (``copy_`` / ``fill_``) before each replay, so
-      no value of the batch is frozen into it;
+    - the graph reads a static ``[B,1]`` int32 token buffer (or, where the
+      batch carries ``embeds`` — the vision frontend's decode — a static
+      ``[B,1,d]`` buffer in their dtype) and a static 0-d int32 index,
+      filled (``copy_`` / ``fill_``) before each replay, so no value of the
+      batch is frozen into it;
     - it reads the parameters and reads and writes the caches at the
       addresses it was captured with, so it is keyed on the data pointer,
-      shape, dtype and strides of every parameter and cache leaf.  A new
+      shape, dtype and strides of every parameter and cache leaf (an
+      enc-dec model's ``enc_out`` among them) and on the inputs' names,
+      shapes and dtypes.  A new
       leaf — a checkout that loads a cache leaf in full builds a new tensor
       — captures again; a replay against storage that is no longer the live
       leaf would answer wrongly without an error;
@@ -189,7 +211,7 @@ class GraphedDecodeStep:
         self.capture_s = 0.0
         self._key = None
         self._graph = None
-        self._tokens = self._index = self._logits = self._next = None
+        self._inputs = self._index = self._logits = self._next = None
 
     def __call__(self, params, caches, batch):
         _, nxt = self._run(params, caches, batch, logits=False)
@@ -201,15 +223,16 @@ class GraphedDecodeStep:
         return logits, nxt, caches
 
     def _run(self, params, caches, batch, *, logits: bool):
-        tokens = batch["tokens"]
-        if not tokens.is_cuda:
+        inputs = {k: batch[k] for k in _GRAPH_INPUTS if k in batch}
+        if not next(iter(inputs.values())).is_cuda:
             return _greedy_step(self.cfg, params, caches, batch)
-        key = (tuple(tokens.shape),) + tuple(
-            (t.data_ptr(), tuple(t.shape), t.dtype, t.stride())
-            for t in tree_leaves(params) + tree_leaves(caches))
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()) \
+            + tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.stride())
+                    for t in tree_leaves(params) + tree_leaves(caches))
         if key != self._key:
-            self._capture(params, caches, batch, key)
-        self._tokens.copy_(tokens)
+            self._capture(params, caches, inputs, key)
+        for k, v in inputs.items():
+            self._inputs[k].copy_(v)
         index = batch["index"]
         if isinstance(index, torch.Tensor):
             self._index.copy_(index)
@@ -219,16 +242,16 @@ class GraphedDecodeStep:
         return (self._logits.clone() if logits else None,
                 self._next.clone())
 
-    def _capture(self, params, caches, batch, key) -> None:
+    def _capture(self, params, caches, inputs, key) -> None:
         t0 = time.perf_counter()
         # drop the old graph and its outputs, so its pool can be freed
         self._key = self._graph = self._logits = self._next = None
-        dev = batch["tokens"].device
-        self._tokens = torch.empty(tuple(batch["tokens"].shape),
-                                   dtype=torch.int32, device=dev)
+        dev = next(iter(inputs.values())).device
+        self._inputs = {k: torch.empty(
+            tuple(v.shape), dtype=torch.int32 if k == "tokens" else v.dtype,
+            device=dev).copy_(v) for k, v in inputs.items()}
         self._index = torch.zeros((), dtype=torch.int32, device=dev)
-        self._tokens.copy_(batch["tokens"])
-        static = {"tokens": self._tokens, "index": self._index}
+        static = {**self._inputs, "index": self._index}
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(main)

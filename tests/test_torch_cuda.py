@@ -1078,6 +1078,235 @@ def test_moe_layer_captures_and_drops_as_eager(dev):
     assert torch.equal(out, want)
 
 
+# ---------------------------------------------------------------------------
+# MLA + MTP, enc-dec, M-RoPE from embeddings (reduced configs)
+# ---------------------------------------------------------------------------
+
+def _enc_out(cfg, params, b, dev, seed=3):
+    from repro_torch.models import lm
+    frames = torch.randn((b, 7, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(seed))
+    with torch.no_grad():
+        return lm.encode(cfg, params, {"enc_embeds": frames})
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-large-v3"])
+def test_mla_and_enc_dec_decode_graphed_equals_eager(dev, arch):
+    """MLA decode (the compressed cache written in place at ``index``) and
+    enc-dec decode (cross-attention over ``enc_out``) through the CUDA
+    graph and the eager step, 24 steps: the same tokens, logits and cache
+    bytes from one capture, every leaf in its storage, ``enc_out`` never
+    written; then eager steps with CUDA sync debugging set to raise."""
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import GraphedDecodeStep
+    cfg, params = _family_setup(dev, arch)
+    b, prompt, steps = 3, 6, 24
+    toks = torch.randint(0, cfg.vocab_size, (b, prompt),
+                         generator=torch.Generator().manual_seed(6),
+                         dtype=torch.int32).to(dev)
+    graphed = GraphedDecodeStep(cfg)
+    ce = lm.init_caches(cfg, b, steps + 4, enc_seq=7)
+    cg = lm.init_caches(cfg, b, steps + 4, enc_seq=7)
+    if cfg.enc_dec:
+        ce["enc_out"] = _enc_out(cfg, params, b, dev)
+        cg["enc_out"] = ce["enc_out"].clone()
+        enc = ce["enc_out"].clone()
+    ptrs = [t.data_ptr() for t in tree_leaves(cg)]
+    tok = toks[:, :1]
+    for t in range(steps):
+        with torch.no_grad():
+            want, _ = lm.decode_step(cfg, params, ce,
+                                     {"tokens": tok, "index": t})
+        lg, nxt, _ = graphed.with_logits(params, cg,
+                                         {"tokens": tok, "index": t})
+        assert torch.equal(lg, want), t
+        assert _leaves_equal(cg, ce), t
+        tok = toks[:, t + 1:t + 2] if t + 1 < prompt else nxt
+    assert graphed.captures == 1
+    assert [t.data_ptr() for t in tree_leaves(cg)] == ptrs
+    if cfg.enc_dec:
+        assert torch.equal(cg["enc_out"], enc)
+    else:
+        c_kv = cg["stages"]["stage_0"]["sub_0"]["attn"]["c_kv"]
+        assert bool(c_kv[:, :, :steps].abs().sum(-1).gt(0).all())
+        assert not bool(c_kv[:, :, steps:].any())
+    index = torch.full((), steps, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                logits, _ = lm.decode_step(cfg, params, ce,
+                                           {"tokens": tok, "index": index})
+                index.add_(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_mla_prefill_takes_the_flash_kernel_with_padded_v(dev):
+    """Reduced deepseek's prefill launches flash once per MLA layer (v
+    padded to the qk head dim, bf16: the tc route) and its logits agree
+    with the decode loop's within the bf16 tolerance of the other
+    prefill/decode card checks."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    cfg, params = _family_setup(dev, "deepseek-v3-671b", "float32")
+    toks = torch.randint(0, cfg.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32).to(dev)
+    _lib.reset_launches()
+    full = make_prefill_step(cfg)(params, {"tokens": toks})
+    assert _lib.launches()["flash_attention"] == cfg.n_layers
+    caches = lm.init_caches(cfg, 2, 9)
+    outs = []
+    with torch.no_grad():
+        for t in range(9):
+            lg, _ = lm.decode_step(cfg, params, caches,
+                                   {"tokens": toks[:, t:t + 1], "index": t})
+            outs.append(lg[:, 0])
+    assert float((full - torch.stack(outs, 1)).abs().max()) < 2e-3
+    bf_cfg, bf_params = _family_setup(dev, "deepseek-v3-671b")
+    before = _flash_routes()["tc"]
+    make_prefill_step(bf_cfg)(bf_params, {"tokens": toks})
+    assert _flash_routes()["tc"] == before + bf_cfg.n_layers
+
+
+def test_mtp_train_step_on_the_card_matches_the_cpu(dev):
+    """Reduced deepseek (MLA, MoE, the MTP block), float32: two train
+    steps from one initial state on the card and on the CPU give the same
+    losses (the t+2 term in the total) and parameters, within the float32
+    tolerance of the CPU tests against the JAX package."""
+    from repro_torch.models.config import get_config
+    from repro_torch.models.testing import reduced
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves, tree_map
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = reduced(get_config("deepseek-v3-671b"), n_layers=2)
+    opt = AdamWConfig(lr=1e-3, eps=1e-6)
+    cpu = init_train_state(cfg, 0, opt, "cpu")
+    card = tree_map(lambda t: t.to(dev), cpu)
+    g = torch.Generator().manual_seed(4)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (4, 16),
+                                        generator=g, dtype=torch.int32),
+                "labels": torch.randint(0, cfg.vocab_size, (4, 16),
+                                        generator=g, dtype=torch.int32)}
+               for _ in range(2)]
+    for mb in (1, 2):
+        f_cpu = make_train_step(cfg, opt, microbatches=mb)
+        f_card = make_train_step(cfg, opt, microbatches=mb)
+        for batch in batches:
+            _, m_cpu = f_cpu(cpu, batch)
+            _, m_card = f_card(card, {k: v.to(dev) for k, v in
+                                      batch.items()})
+            for key in ("loss", "total_loss", "moe_aux", "grad_norm"):
+                assert abs(float(m_card[key]) - float(m_cpu[key])) <= \
+                    1e-4 * abs(float(m_cpu[key])) + 1e-7, key
+            assert float(m_cpu["total_loss"]) > float(m_cpu["loss"])
+    for a, b in zip(tree_leaves(cpu["params"]), tree_leaves(card["params"])):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=2e-5)
+
+
+def test_vlm_decode_from_embeds_graphed_equals_eager(dev):
+    """Reduced qwen2-vl decodes from precomputed embeddings with M-RoPE
+    through the CUDA graph (a static [B,1,d] embedding buffer) and the
+    eager step: the same tokens, logits and caches, one capture."""
+    from repro_torch.models import lm
+    from repro_torch.train.step import GraphedDecodeStep
+    cfg, params = _family_setup(dev, "qwen2-vl-72b")
+    b, steps = 3, 20
+    emb = torch.randn((b, steps, cfg.d_model), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(5)
+                      ).to(torch.bfloat16)
+    graphed = GraphedDecodeStep(cfg)
+    ce = lm.init_caches(cfg, b, steps)
+    cg = lm.init_caches(cfg, b, steps)
+    for t in range(steps):
+        batch = {"embeds": emb[:, t:t + 1], "index": t}
+        with torch.no_grad():
+            want, _ = lm.decode_step(cfg, params, ce, batch)
+        lg, nxt, _ = graphed.with_logits(params, cg, batch)
+        assert torch.equal(lg, want), t
+        assert torch.equal(
+            nxt, want[..., :cfg.vocab_size].argmax(-1).to(torch.int32)), t
+        assert _leaves_equal(cg, ce), t
+    assert graphed.captures == 1
+    # the same token ids as embeddings give the token path's logits
+    toks = torch.randint(0, cfg.vocab_size, (b, 1), device=dev,
+                         dtype=torch.int32)
+    c1, c2 = lm.init_caches(cfg, b, 2), lm.init_caches(cfg, b, 2)
+    with torch.no_grad():
+        a, _ = lm.decode_step(cfg, params, c1, {"tokens": toks, "index": 0})
+        e, _ = lm.decode_step(cfg, params, c2, {
+            "embeds": params["embed"][toks[:, 0].long()][:, None],
+            "index": 0})
+    assert torch.equal(a, e)
+
+
+def test_enc_dec_rollback_loads_no_enc_out_on_the_card(dev):
+    """Reduced whisper served under Kishu on the card: each rollback to
+    the prefix restores the KV caches exactly (block_diff), keeps the
+    session's ``enc_out`` tensor, and asks the store for none of its
+    chunks."""
+    from repro_torch.core import KishuSession, MemoryStore
+    from repro_torch.core.chunkstore import chunk_key
+    from repro_torch.core.delta import exact_dirty_indices
+    from repro_torch.models import lm
+    from repro_torch.train.step import GraphedDecodeStep
+    cfg, params = _family_setup(dev, "whisper-large-v3")
+    b, prefix, gen, cb = 3, 8, 5, 1 << 12
+    store = MemoryStore()
+    gets = []
+    for name in ("get_chunk", "get_chunks"):
+        real = getattr(store, name)
+
+        def spy(keys, *a, _real=real, **kw):
+            gets.extend([keys] if isinstance(keys, str) else list(keys))
+            return _real(keys, *a, **kw)
+        setattr(store, name, spy)
+    decode = GraphedDecodeStep(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (b, prefix),
+                         generator=torch.Generator().manual_seed(7),
+                         dtype=torch.int32).to(dev)
+
+    def prefill(ns):
+        caches = lm.init_caches(cfg, b, prefix + gen, enc_seq=7)
+        caches["enc_out"] = _enc_out(cfg, params, b, dev)
+        for t in range(prefix):
+            decode(params, caches, {"tokens": toks[:, t:t + 1], "index": t})
+        ns.set_tree("caches", caches)
+
+    def generate(ns, flavor):
+        caches = ns.get_tree("caches")
+        tok = (toks[:, -1:] + flavor) % cfg.vocab_size
+        for t in range(gen):
+            tok, _ = decode(params, caches, {"tokens": tok,
+                                             "index": prefix + t})
+
+    sess = KishuSession(store, chunk_bytes=cb, cache_bytes=0)
+    sess.register("prefill", prefill)
+    sess.register("generate", generate)
+    sess.init_state({})
+    c0 = sess.run("prefill")
+    snap = {n: sess.ns[n].clone() for n in sess.ns.names()
+            if n.startswith("caches/")}
+    enc_out = sess.ns["caches/enc_out"]
+    raw = enc_out.cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+    enc_keys = {chunk_key(raw[i:i + cb]) for i in range(0, len(raw), cb)}
+    for flavor in (1, 2):
+        sess.run("generate", flavor=flavor)
+        gets.clear()
+        sess.checkout(c0)
+        assert gets and not enc_keys & set(gets)
+        assert sess.ns["caches/enc_out"] is enc_out
+        for n, t in snap.items():
+            assert sess.ns[n].is_cuda
+            assert exact_dirty_indices(sess.ns[n], t, cb) == [], n
+    sess.close()
+
+
 def test_train_phase_replays_exactly_on_the_card(dev):
     """A train phase run again from its parent commit reproduces the
     committed state bit for bit (block_diff), as Kishu's fallback

@@ -69,13 +69,16 @@ def test_import_pulls_in_neither_jax_nor_repro():
 NEW_MODULES = ("core/planner.py", "core/fabric.py", "core/baselines.py",
                "launch/kishu_cli.py", "launch/kishud.py", "models/mamba.py",
                "models/moe.py", "configs/mamba2_780m.py",
-               "configs/phi35_moe_42b.py", "configs/jamba_1p5_large_398b.py")
+               "configs/phi35_moe_42b.py", "configs/jamba_1p5_large_398b.py",
+               "configs/deepseek_v3_671b.py", "configs/whisper_large_v3.py",
+               "configs/qwen2_vl_72b.py", "configs/mistral_nemo_12b.py",
+               "configs/stablelm_12b.py")
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)
 def test_kishu_modules_exist_and_stand_alone(rel):
     """The planner, the fabric, the baselines, the CLI, kishud, the SSM and
-    MoE layers and their configs: each has its counterpart in the port,
+    MoE layers and every config: each has its counterpart in the port,
     importing neither jax nor repro."""
     path = PORT / rel
     assert path.is_file() and (ROOT / "src" / "repro" / rel).is_file()

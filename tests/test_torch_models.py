@@ -1,8 +1,11 @@
 """The port's decoder held against the JAX package's, function by
 function, on reduced ``smollm-360m``, reduced ``qwen3-1.7b`` (qk-norm) and,
 for configs, stages, init and the whole model, reduced ``mamba2-780m``
-(SSD, sinusoidal positions), ``phi3.5-moe-42b-a6.6b`` (MoE) and
-``jamba-1.5-large-398b`` (attention + SSD + MoE).
+(SSD, sinusoidal positions), ``phi3.5-moe-42b-a6.6b`` (MoE),
+``jamba-1.5-large-398b`` (attention + SSD + MoE), ``deepseek-v3-671b``
+(MLA + MoE + MTP), ``whisper-large-v3`` (enc-dec: encoder frames made from
+a seed), ``qwen2-vl-72b`` (M-RoPE, with random (t, h, w) positions where a
+test takes positions), ``mistral-nemo-12b`` and ``stablelm-12b``.
 
 Parameters come from the JAX package's own initialiser and cross as raw
 bytes (``interop.to_torch``); inputs are made from numpy seeds.  float32
@@ -31,14 +34,17 @@ from repro_torch.core.serialize import dtype_name  # noqa: E402
 from repro_torch.interop import to_torch  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
-from repro_torch.models.config import (MLAConfig, MoEConfig,  # noqa: E402
+from repro_torch.models.config import (MoEConfig,  # noqa: E402
                                        SSMConfig)
 from repro_torch.models.config import get_config as tget  # noqa: E402
 from repro_torch.models.testing import reduced as treduced  # noqa: E402
 
 ARCHS = ["smollm-360m", "qwen3-1.7b"]
 NEW_ARCHS = ["mamba2-780m", "phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b"]
-ALL_ARCHS = ARCHS + NEW_ARCHS
+# MLA + MTP, enc-dec, M-RoPE with the vision frontend, two dense configs
+ZOO_ARCHS = ["deepseek-v3-671b", "whisper-large-v3", "qwen2-vl-72b",
+             "mistral-nemo-12b", "stablelm-12b"]
+ALL_ARCHS = ARCHS + NEW_ARCHS + ZOO_ARCHS
 TOL = dict(atol=1e-5, rtol=1e-4)
 
 
@@ -82,6 +88,26 @@ def _tokens(cfg, b=2, s=12, seed=0):
         0, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
+def _batches(cfg, toks, seed=0, s_enc=10):
+    """The JAX and the port's batch of ``toks``; an enc-dec model's gets
+    ``enc_embeds`` [B, s_enc, d] made from ``seed``."""
+    jb, tb = {"tokens": jnp.asarray(toks)}, \
+        {"tokens": torch.from_numpy(toks.copy())}
+    if cfg.enc_dec:
+        e = _x((toks.shape[0], s_enc, cfg.d_model), 100 + seed)
+        jb["enc_embeds"], tb["enc_embeds"] = jnp.asarray(e), \
+            torch.from_numpy(e)
+    return jb, tb
+
+
+def _positions(cfg, b, s, seed=0):
+    """[B,S] positions, or random (t, h, w) ids [B,S,3] for M-RoPE."""
+    if cfg.rope_type == "mrope":
+        return np.random.default_rng(seed).integers(
+            0, 24, (b, s, 3)).astype(np.int32)
+    return np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+
+
 # ---------------------------------------------------------------------------
 # configs and layout
 # ---------------------------------------------------------------------------
@@ -92,6 +118,34 @@ def test_configs_are_the_jax_packages(arch):
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
         assert jc.padded_vocab == tc.padded_vocab
         assert jc.param_counts() == tc.param_counts()
+
+
+def test_arch_ids_are_the_jax_packages():
+    """Every architecture of the JAX package is registered in the port, in
+    the JAX package's order, and nothing else."""
+    from repro.configs import ARCH_IDS as JAX_IDS
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models.config import list_configs
+    assert ARCH_IDS == JAX_IDS and sorted(ARCH_IDS) == list_configs()
+    assert sorted(ALL_ARCHS) == sorted(ARCH_IDS)
+
+
+@pytest.mark.parametrize("arch,total", [("deepseek-v3-671b", 15_797_352_448),
+                                        ("whisper-large-v3", 2_020_682_240)])
+def test_card_cells_parameter_counts(arch, total):
+    """The parameters Cells G (deepseek-v3, first 4 of 61 layers, the MTP
+    block included) and H (whisper-large-v3, whole) hold, from the JAX
+    package's abstract parameters, beside the port's own count of the
+    same tree on a tiny copy of its leaves' shapes."""
+    cut = {"deepseek-v3-671b": {"n_layers": 4}}.get(arch, {})
+    jc, tc = jget(arch).replace(**cut), tget(arch).replace(**cut)
+    leaves = jax.tree.leaves(jlm.abstract_params(jc))
+    assert sum(int(np.prod(a.shape)) for a in leaves) == total
+    shapes = _flat(jax.tree.map(lambda a: a.shape, jlm.abstract_params(jc)))
+    small = tc.replace(d_model=8, d_ff=8, vocab_size=8, n_heads=2,
+                       n_kv_heads=2, head_dim=4)
+    assert sorted(_flat(tlm.init_params(small, torch.Generator()
+                                        .manual_seed(0)))) == sorted(shapes)
 
 
 def test_smollm_full_size_counts():
@@ -149,7 +203,8 @@ def test_init_params_layout(arch, dtype):
     for name in jp:
         assert tuple(tp[name].shape) == jp[name].shape, name
         assert dtype_name(tp[name].dtype) == str(jp[name].dtype), name
-    first = "ssm/in_proj" if arch == "mamba2-780m" else "attn/wq"
+    first = {"mamba2-780m": "ssm/in_proj",
+             "deepseek-v3-671b": "attn/wq_a"}.get(arch, "attn/wq")
     assert tp[f"stages/stage_0/sub_0/{first}"].shape[0] == \
         tlm.build_stages(tc)[0].n_units
     assert torch.equal(tp["final_norm/scale"].float(),
@@ -174,20 +229,6 @@ def test_untied_head():
 
 
 @pytest.mark.parametrize("kw", [
-    {"mla": MLAConfig()}, {"enc_dec": True}, {"rope_type": "mrope"},
-    {"frontend": "audio"}, {"mtp": True}],
-    ids=lambda kw: "-".join(kw))
-def test_unported_features_raise(kw):
-    cfg = treduced(tget("smollm-360m")).replace(**kw)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, remaining workloads"):
-        tlm.check_supported(cfg)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, remaining workloads"):
-        tlm.init_params(cfg, torch.Generator().manual_seed(0))
-
-
-@pytest.mark.parametrize("kw", [
     {"moe": MoEConfig(n_experts=4, d_ff_expert=32)},
     {"family": "ssm", "ssm": SSMConfig(d_state=8, head_dim=16,
                                        chunk_size=4)},
@@ -199,7 +240,6 @@ def test_ported_features_run(kw):
     """MoE, SSM, hybrid stacks and sinusoidal positions no longer raise:
     the port's model runs them and matches the JAX package's logits."""
     jc, tc = _cfgs("smollm-360m", n_layers=2, **kw)
-    tlm.check_supported(tc)
     jp, tp = _jax_params(jc)
     toks = _tokens(jc, s=8, seed=6)
     want = jlm.forward(jc, jp, {"tokens": jnp.asarray(toks)})
@@ -321,29 +361,36 @@ def test_embed_positions_unembed(arch):
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_apply_layer_and_run_stages(arch):
-    """Every sub-layer of the first stage's second unit, then the whole
-    stack: outputs and the MoE aux loss (zero without MoE layers)."""
+    """Every sub-layer of the first stage's second unit (its only one
+    where it has one), then the whole stack: outputs and the MoE aux loss
+    (zero without MoE layers)."""
     jc, tc = _cfgs(arch)
     jp, tp = _jax_params(jc)
     x = _x((2, 8, jc.d_model), 9)
-    pos = np.broadcast_to(np.arange(8, dtype=np.int32), (2, 8)).copy()
+    pos = _positions(jc, 2, 8, seed=9)
+    # an enc-dec decoder layer cross-attends over 6 encoder frames
+    enc = _x((2, 6, jc.d_model), 10) if jc.enc_dec else None
+    jenc = None if enc is None else jnp.asarray(enc)
+    tenc = None if enc is None else torch.from_numpy(enc)
     stage_j, stage_t = jlm.build_stages(jc)[0], tlm.build_stages(tc)[0]
-    unit_j = jax.tree.map(lambda a: a[1], jp["stages"]["stage_0"])
-    unit_t = tlm._unstack(tp["stages"]["stage_0"], stage_t.n_units)[1]
+    u = min(1, stage_t.n_units - 1)     # deepseek's dense prefix: 1 unit
+    unit_j = jax.tree.map(lambda a: a[u], jp["stages"]["stage_0"])
+    unit_t = tlm._unstack(tp["stages"]["stage_0"], stage_t.n_units)[u]
     for j, (spec_j, spec_t) in enumerate(zip(stage_j.unit, stage_t.unit)):
         want, want_aux = jlm._apply_layer(unit_j[f"sub_{j}"], jc, spec_j,
                                           jnp.asarray(x), jnp.asarray(pos),
-                                          None)
+                                          jenc)
         got, aux = tlm._apply_layer(unit_t[f"sub_{j}"], tc, spec_t,
                                     torch.from_numpy(x),
-                                    torch.from_numpy(pos))
+                                    torch.from_numpy(pos), enc_out=tenc)
         _close(got, want)
         np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
     want, want_aux = jlm._run_stages(jp["stages"], jlm.build_stages(jc), jc,
-                                     jnp.asarray(x), jnp.asarray(pos), None,
+                                     jnp.asarray(x), jnp.asarray(pos), jenc,
                                      remat=False)
     got, aux = tlm._run_stages(tp["stages"], tlm.build_stages(tc), tc,
-                               torch.from_numpy(x), torch.from_numpy(pos))
+                               torch.from_numpy(x), torch.from_numpy(pos),
+                               enc_out=tenc)
     _close(got, want)
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
     assert (float(aux) > 0) == (tc.moe is not None)
@@ -357,11 +404,10 @@ def test_forward_logits(arch):
     jc, tc = _cfgs(arch)
     jp, tp = _jax_params(jc)
     toks = _tokens(jc, s=12 if arch in ARCHS else 16, seed=3)
-    want, want_aux = jlm.forward(jc, jp, {"tokens": jnp.asarray(toks)},
-                                 return_aux=True)
+    jb, tb = _batches(jc, toks, seed=3)
+    want, want_aux = jlm.forward(jc, jp, jb, return_aux=True)
     routes = []
-    got, aux = tlm.forward(tc, tp, {"tokens": torch.from_numpy(toks)},
-                           return_aux=True, routes=routes)
+    got, aux = tlm.forward(tc, tp, tb, return_aux=True, routes=routes)
     assert got.shape == (2, toks.shape[1], jc.padded_vocab)
     assert got.dtype == torch.float32 and aux["moe_aux"].dtype == \
         torch.float32

@@ -1,7 +1,11 @@
 """The port's serving path held against the JAX package's, on reduced
-``smollm-360m`` and reduced ``qwen3-1.7b`` (qk-norm), and on reduced
+``smollm-360m`` and reduced ``qwen3-1.7b`` (qk-norm), on reduced
 ``mamba2-780m`` (SSM caches), ``phi3.5-moe-42b-a6.6b`` (MoE) and
-``jamba-1.5-large-398b`` (KV and SSM caches side by side), on the CPU.
+``jamba-1.5-large-398b`` (KV and SSM caches side by side), and on reduced
+``deepseek-v3-671b`` (MLA's compressed caches), ``whisper-large-v3``
+(KV caches plus ``enc_out``, from seeded encoder frames), ``qwen2-vl-72b``
+(M-RoPE; its serving cells decode from embeddings), ``mistral-nemo-12b``
+and ``stablelm-12b``, on the CPU.
 
 Parameters come from the JAX package's initialiser and cross as raw bytes
 (``interop.to_torch``); prompts are made with numpy from a seed.  float32
@@ -38,13 +42,16 @@ from repro_torch.interop import to_numpy, to_torch  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
-from repro_torch.models.config import MLAConfig  # noqa: E402
 from repro_torch.models.config import get_config as tget  # noqa: E402
 from repro_torch.models.testing import reduced as treduced  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 
 ARCHS = ["smollm-360m", "qwen3-1.7b"]
 NEW_ARCHS = ["mamba2-780m", "phi3.5-moe-42b-a6.6b", "jamba-1.5-large-398b"]
+# MLA + MTP, enc-dec, M-RoPE with the vision frontend, two dense configs
+ZOO_ARCHS = ["deepseek-v3-671b", "whisper-large-v3", "qwen2-vl-72b",
+             "mistral-nemo-12b", "stablelm-12b"]
+ENC_SEQ = 7                       # encoder frames of the enc-dec tests
 LOGITS = dict(atol=1e-4, rtol=1e-4)
 KV = dict(atol=1e-5, rtol=1e-4)
 CONSISTENCY = 2e-3
@@ -83,11 +90,26 @@ def _np(x):
     return np.asarray(x, dtype=np.float32)
 
 
+def _enc(cfg, b, seed=9):
+    """Seeded encoder frames [b, ENC_SEQ, d] of an enc-dec model."""
+    return np.random.default_rng(seed).standard_normal(
+        (b, ENC_SEQ, cfg.d_model)).astype(np.float32)
+
+
+def _with_enc(cfg, batch, b, seed=9, jax_side=False):
+    """``batch`` plus an enc-dec model's ``enc_embeds``."""
+    if cfg.enc_dec:
+        e = _enc(cfg, b, seed)
+        batch = {**batch, "enc_embeds": jnp.asarray(e) if jax_side
+                 else torch.from_numpy(e)}
+    return batch
+
+
 # ---------------------------------------------------------------------------
 # caches, prefill and decode against the JAX package
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS + ZOO_ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_init_caches_layout(arch, dtype):
     n_layers = 8 if arch == "jamba-1.5-large-398b" else 3    # whole units
@@ -106,6 +128,14 @@ def test_init_caches_layout(arch, dtype):
         assert got["stages/stage_0/sub_0/ssm/conv"].dtype == \
             getattr(torch, dtype)
         return
+    if tc.mla is not None:
+        c_kv = got["stages/stage_0/sub_0/attn/c_kv"]
+        assert tuple(c_kv.shape) == (1, 2, 11, tc.mla.kv_lora_rank)
+        assert tuple(got["stages/stage_1/sub_0/attn/k_rope"].shape) == \
+            (2, 2, 11, 1, tc.mla.qk_rope_head_dim)
+        return
+    if tc.enc_dec:
+        assert tuple(got["enc_out"].shape) == (2, 11, tc.d_model)
     k = got["stages/stage_0/sub_0/attn/k"]
     n_units = tlm.build_stages(tc)[0].n_units
     assert tuple(k.shape) == (n_units, 2, 11, tc.n_kv_heads,
@@ -121,24 +151,16 @@ def test_init_caches_defaults_to_the_card():
         tlm.init_caches(tc, 1, 4)
 
 
-@pytest.mark.parametrize("kw", [{"mla": MLAConfig()}, {"enc_dec": True}],
-                         ids=lambda kw: "-".join(kw))
-def test_unported_caches_raise(kw):
-    """MLA and enc-dec (``enc_out``) caches are not ported."""
-    cfg = treduced(tget("smollm-360m")).replace(**kw)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, remaining workloads"):
-        tlm.init_caches(cfg, 1, 4, device="cpu")
-
-
-@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS + ZOO_ARCHS)
 def test_prefill_logits_match_jax(arch):
     jc, tc = _cfgs(arch)
     jp, tp = _params(jc)
     s = 16 if tc.ssm is not None else 13         # SSD: chunks of 8
     toks = _tokens(jc, 2, s, seed=1)
-    want = jstep.make_prefill_step(jc)(jp, {"tokens": jnp.asarray(toks)})
-    got = tstep.make_prefill_step(tc)(tp, {"tokens": torch.from_numpy(toks)})
+    want = jstep.make_prefill_step(jc)(jp, _with_enc(
+        jc, {"tokens": jnp.asarray(toks)}, 2, jax_side=True))
+    got = tstep.make_prefill_step(tc)(tp, _with_enc(
+        tc, {"tokens": torch.from_numpy(toks)}, 2))
     assert got.shape == (2, s, jc.padded_vocab) and got.dtype == torch.float32
     np.testing.assert_allclose(_np(got), _np(want), **LOGITS)
 
@@ -154,8 +176,15 @@ def test_prefill_logits_match_jax_bf16():
 
 def _decode_both(jc, tc, jp, tp, toks, cache_len):
     b, s = toks.shape
-    jcache = jlm.init_caches(jc, b, cache_len)
-    tcache = tlm.init_caches(tc, b, cache_len, device="cpu")
+    enc_seq = ENC_SEQ if jc.enc_dec else 0
+    jcache = jlm.init_caches(jc, b, cache_len, enc_seq=enc_seq)
+    tcache = tlm.init_caches(tc, b, cache_len, device="cpu", enc_seq=enc_seq)
+    if jc.enc_dec:           # each package encodes the same frames
+        jcache["enc_out"] = jlm.encode(jc, jp, _with_enc(jc, {}, b,
+                                                         jax_side=True),
+                                       remat=False)
+        with torch.no_grad():
+            tcache["enc_out"] = tlm.encode(tc, tp, _with_enc(tc, {}, b))
     jl, tl = [], []
     for t in range(s):
         lg, jcache = jlm.decode_step(
@@ -171,8 +200,12 @@ def _decode_both(jc, tc, jp, tp, toks, cache_len):
     return jnp.stack(jl, 1), torch.stack(tl, 1), jcache, tcache
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ZOO_ARCHS)
 def test_decode_teacher_forced_matches_jax(arch):
+    """Logits and every cache leaf after nine teacher-forced steps: K/V
+    (or MLA's ``c_kv`` and ``k_rope``) in the filled slots, the rest zero
+    bytes, ``index``, and an enc-dec model's ``enc_out`` (read, never
+    written)."""
     jc, tc = _cfgs(arch)
     jp, tp = _params(jc)
     toks = _tokens(jc, 2, 9, seed=2)
@@ -186,6 +219,11 @@ def test_decode_teacher_forced_matches_jax(arch):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         if name.endswith("index"):
             assert g.tobytes() == w.tobytes() and set(g.tolist()) == {9}
+        elif name == "enc_out":
+            np.testing.assert_allclose(g, w, **KV)
+            with torch.no_grad():
+                assert torch.equal(tcache["enc_out"], tlm.encode(
+                    tc, tp, _with_enc(tc, {}, 2)))
         else:
             np.testing.assert_allclose(g[:, :, :9], w[:, :, :9], **KV)
             # the unfilled slots stay zero bytes in both packages
@@ -193,7 +231,7 @@ def test_decode_teacher_forced_matches_jax(arch):
                 == bytes(g[:, :, 9:].nbytes)
 
 
-@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS + ZOO_ARCHS)
 def test_prefill_decode_consistency(arch):
     """The port's prefill (flash attention, chunked SSD) and its decode
     loop (cached attention, the SSM recurrence) give the same logits, as
@@ -202,8 +240,12 @@ def test_prefill_decode_consistency(arch):
     tp = tlm.init_params(tc, torch.Generator().manual_seed(0))
     s = 16 if tc.ssm is not None else 8          # SSD: chunks of 8
     toks = torch.from_numpy(_tokens(tc, 2, s, seed=2))
-    full = tstep.make_prefill_step(tc)(tp, {"tokens": toks})
-    caches = tlm.init_caches(tc, 2, s, device="cpu")
+    batch = _with_enc(tc, {"tokens": toks}, 2)
+    full = tstep.make_prefill_step(tc)(tp, batch)
+    caches = tlm.init_caches(tc, 2, s, device="cpu", enc_seq=ENC_SEQ)
+    if tc.enc_dec:
+        with torch.no_grad():
+            caches["enc_out"] = tlm.encode(tc, tp, batch)
     outs = []
     with torch.no_grad():
         for t in range(s):
@@ -298,7 +340,7 @@ def test_serve_launcher_on_the_cpu(capsys):
     assert "tok/s incl prefill" in out and "sample:" in out
 
 
-@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS + ZOO_ARCHS)
 def test_serve_launcher_runs_each_arch(arch, capsys):
     """A prefill-then-decode-loop serve run of each registered arch."""
     tserve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch",
@@ -323,15 +365,29 @@ def test_serve_launcher_defaults_to_the_card():
 B, PREFIX, GEN = 3, 10, 6
 
 
+def _torch_inputs(tc, tp, tok, index):
+    """The decode batch: the token, or for the vision frontend's model its
+    embedding (the JAX launcher's)."""
+    if tc.frontend == "vision":
+        return {"embeds": tp["embed"][tok[:, 0].long()][:, None, :],
+                "index": index}
+    return {"tokens": tok, "index": index}
+
+
 def _torch_cells(tc, tp):
     decode = tstep.make_decode_step(tc)
 
     def prefill(ns, seed):
-        caches = tlm.init_caches(tc, B, PREFIX + GEN, device="cpu")
+        caches = tlm.init_caches(tc, B, PREFIX + GEN, device="cpu",
+                                 enc_seq=ENC_SEQ)
+        if tc.enc_dec:
+            with torch.no_grad():
+                caches["enc_out"] = tlm.encode(tc, tp,
+                                               _with_enc(tc, {}, B, seed))
         toks = torch.from_numpy(_tokens(tc, B, PREFIX, seed))
         tok = toks[:, :1]
         for t in range(PREFIX):
-            tok, caches = decode(tp, caches, {"tokens": tok, "index": t})
+            tok, caches = decode(tp, caches, _torch_inputs(tc, tp, tok, t))
             if t + 1 < PREFIX:
                 tok = toks[:, t + 1:t + 2]
         ns.set_tree("caches", caches)
@@ -345,9 +401,8 @@ def _torch_cells(tc, tp):
         outs, logits = [], []
         with torch.no_grad():
             for t in range(n):
-                lg, caches = tlm.decode_step(
-                    tc, tp, caches, {"tokens": (tok + flavor) % tc.vocab_size,
-                                     "index": pos + t})
+                lg, caches = tlm.decode_step(tc, tp, caches, _torch_inputs(
+                    tc, tp, (tok + flavor) % tc.vocab_size, pos + t))
                 tok = lg[..., :tc.vocab_size].argmax(-1).to(torch.int32)
                 outs.append(tok)
                 logits.append(lg[:, 0])
@@ -512,6 +567,47 @@ def test_serve_batched_flow_ssm_moe(tmp_path, kind, arch):
     state = [n for n in want if n.endswith("/ssm/state")]
     for n in state:                  # the state is rewritten every step
         assert caches[1][n] != want[n] and caches[2][n] != want[n]
+    sess.close()
+
+
+@pytest.mark.parametrize("kind", ["memory", "dir"])
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_serve_batched_flow_zoo(tmp_path, kind, arch):
+    """The serve_batched flow with MLA's compressed caches, an enc-dec
+    model's KV caches beside ``enc_out`` (committed once, never rewritten:
+    every rollback keeps its tensor), decoding from embeddings with M-RoPE,
+    and the two dense configs: each rollback to the prefix restores the
+    caches bit for bit, and a repeated flavor regenerates the same tokens
+    and caches."""
+    _, tc = _cfgs(arch)
+    tp = tlm.init_params(tc, torch.Generator().manual_seed(0))
+    uri = "memory://" if kind == "memory" else f"dir://{tmp_path}/cas"
+    sess = tcore.KishuSession(tcore.open_store(uri), chunk_bytes=CB,
+                              device="cpu")
+    prefill, generate = _torch_cells(tc, tp)
+    sess.register("prefill", prefill)
+    sess.register("generate", generate)
+    sess.init_state({})
+    prefix = sess.run("prefill", seed=7)
+    want = _cache_bytes(sess.ns)
+    assert ("caches/enc_out" in want) == tc.enc_dec
+    assert any(n.endswith("/attn/c_kv") for n in want) == (tc.mla is not None)
+    enc_out = sess.ns["caches/enc_out"] if tc.enc_dec else None
+    results, caches = {}, {}
+    for flavor in (1, 2, 1):
+        sess.checkout(prefix)
+        assert _cache_bytes(sess.ns) == want
+        if enc_out is not None:
+            assert sess.ns["caches/enc_out"] is enc_out
+        sess.run("generate", n=GEN, flavor=flavor)
+        got = (sess.ns["generated"].clone(), _cache_bytes(sess.ns))
+        if flavor in results:
+            assert torch.equal(got[0], results[flavor])
+            assert got[1] == caches[flavor]
+        results[flavor], caches[flavor] = got
+    assert not torch.equal(results[1], results[2])
+    if enc_out is not None:
+        assert caches[1]["caches/enc_out"] == want["caches/enc_out"]
     sess.close()
 
 

@@ -284,6 +284,67 @@ def test_microbatched_steps_match_jax(arch, microbatches):
                                                    jstate["opt"]))
 
 
+@pytest.mark.parametrize("arch,microbatches",
+                         [("deepseek-v3-671b", 1), ("deepseek-v3-671b", 2),
+                          ("whisper-large-v3", 1), ("whisper-large-v3", 2),
+                          ("qwen2-vl-72b", 1), ("mistral-nemo-12b", 1),
+                          ("stablelm-12b", 1)])
+def test_train_step_matches_jax_zoo(arch, microbatches):
+    """Two steps of the remaining architectures against the JAX package's
+    ``make_train_step``: deepseek's loss carries the MTP block's t+2
+    cross-entropy (``mtp_coef`` 0.1) and the MoE aux loss, whisper's batch
+    its encoder frames (split with the tokens into microbatches)."""
+    jcfg, tcfg, jstate, tstate, opt = _carried(arch)
+    jfn = jstep.make_train_step(jcfg, jadamw.AdamWConfig(**opt),
+                                remat=False, microbatches=microbatches)
+    tfn = tstep.make_train_step(tcfg, tadamw.AdamWConfig(**opt),
+                                microbatches=microbatches)
+    ids = {k: id(v) for k, v in _flat(tstate).items()}
+    for i in range(2):
+        jb, tb = _batch(jcfg, i, b=4)
+        if jcfg.enc_dec:
+            e = np.random.default_rng(20 + i).standard_normal(
+                (4, 6, jcfg.d_model)).astype(np.float32)
+            jb["enc_embeds"], tb["enc_embeds"] = jnp.asarray(e), \
+                torch.from_numpy(e)
+        jstate, jm = jfn(jstate, jb, jnp.float32(1e-3))
+        tstate, tm = tfn(tstate, tb, 1e-3)
+        for key in ("loss", "total_loss", "moe_aux", "grad_norm"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                       rtol=1e-4, atol=1e-7, err_msg=key)
+    if tcfg.mtp:         # the t+2 term is in the total, not in the loss
+        assert float(tm["total_loss"]) > float(tm["loss"]) \
+            + 0.01 * float(tm["moe_aux"])
+    assert {k: id(v) for k, v in _flat(tstate).items()} == ids  # in place
+    # the parameters take the tolerance of the one-step family test: Adam
+    # moves a near-zero gradient's parameter by lr * d / eps
+    _assert_tree_close(tstate["params"],
+                       jax.tree.map(np.asarray, jstate["params"]),
+                       rtol=1e-4, atol=2e-5)
+    _assert_tree_close(tstate["opt"], jax.tree.map(np.asarray,
+                                                   jstate["opt"]))
+
+
+def test_mtp_loss_is_the_reference_loss():
+    """``make_loss_fn``'s total for an MTP model: the token loss, 0.01 x
+    the MoE aux loss and ``mtp_coef`` x the t+2 cross-entropy, each as the
+    JAX package computes it; ``mtp_coef=0`` leaves the rest."""
+    jcfg, tcfg, jstate, tstate, _ = _carried("deepseek-v3-671b")
+    jb, tb = _batch(jcfg, 0)
+    for coef in (0.1, 0.0, 1.0):
+        jtot, jaux = jstep.make_loss_fn(jcfg, remat=False, mtp_coef=coef)(
+            jstate["params"], jb)
+        ttot, taux = tstep.make_loss_fn(tcfg, mtp_coef=coef)(
+            tstate["params"], tb)
+        np.testing.assert_allclose(float(ttot), float(jtot), rtol=1e-5)
+        np.testing.assert_allclose(float(taux["loss"]), float(jaux["loss"]),
+                                   rtol=1e-5)
+        if coef == 0.0:
+            np.testing.assert_allclose(
+                float(ttot), float(taux["loss"] + 0.01 * taux["moe_aux"]),
+                rtol=1e-6)
+
+
 def test_microbatches_average_to_the_whole_batch():
     """On a dense model the mean of the microbatches' mean losses is the
     whole batch's mean loss, and so are the gradients: one step with 2
