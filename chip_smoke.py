@@ -129,6 +129,27 @@ Phase 7d Cell H, enc-dec serving: whisper-large-v3 at full size (32
          the prefix commit; every rollback must keep its tensor and read
          none of its chunks from the store.
 
+Phase 8  Distribution on the card: a one-rank NCCL group over a
+         FileStore, SmolLM-360M at Cell B's full width cut to its first 8
+         of 32 layers (125,845,440 bf16 params + float32 moments,
+         1,258,454,416 bytes), params and moments DTensors under
+         ShardingRules on a (1, 1) ("data", "model") CUDA mesh, in a
+         KishuSession with ``group=WORLD``.  Two sharded train steps run
+         as Kishu cells (hidden constraint on), each held against the plain
+         single-device port step on the card (loss 1e-3, params 2e-2, and
+         each leaf's change over the step within DELTA_TOL of the plain
+         change's norm; bit-identity recorded); the trained state's chunk
+         keys and stored bytes equal those of the same values committed
+         as plain tensors;
+         a reinit_vocab_slice cycle restores by patch checkout (block_diff
+         finds no differing chunk); the commit restores elastically onto
+         an 8-way Shard(0) layout, range by range (host_shard_ranges),
+         each range reading exactly the chunks of chunks_for_range, and
+         the reassembled tensor is exact; one compressed_psum over the
+         NCCL group, whose int32 sum equals the local int8 gradient.
+         Launches of the comparisons with plain tensors (the plain step
+         and the plain commit) are not counted as the path's.
+
 Output: per-phase lines, one JSON line of kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  The full record goes to
 ``build/chip_smoke.json`` (Phase 4b's plan estimates beside the wall
@@ -137,10 +158,12 @@ repository, it exits non-zero before printing any result.
 
     python3 chip_smoke.py --only phase2,phase6 [--root DIR]
 
-runs only the named phases (2 and 6, each on a store of its own), taken
-from the ``chip_smoke.py`` and ``src/`` under ``DIR`` (default: this
-tree), and prints one line of wall times each.  Two trees are compared by
-calling it in turns with each tree's root.
+runs only the named phases (2, 6 and the serving phases 5, 7, 7b, 7c and
+7d, each on a store of its own), taken from the ``chip_smoke.py`` and
+``src/`` under ``DIR`` (default: this tree), and prints one line each of
+wall times, decode ms a step, the graphed step's busy share and peak
+memory.  Two trees are compared by calling it in turns with each tree's
+root.
 """
 from __future__ import annotations
 
@@ -225,9 +248,22 @@ ENC_PATH_KERNELS = SERVE_PATH_KERNELS
 # the phases whose launch counts the kernels line reports, each read from
 # its own run (counts set to 0 just before it)
 PATHS = ("phase2", "phase4", "phase4b", "phase5", "phase6", "phase7",
-         "phase7b", "phase7c", "phase7d")
+         "phase7b", "phase7c", "phase7d", "phase8")
+# Phase 8: SmolLM-360M at full width, its first 8 of 32 layers, as
+# DTensors on a one-rank NCCL mesh; the kernels its Kishu path launches on
+# DTensor co-variables
+DIST_LAYERS = 8
+DIST_BATCH, DIST_SEQ = 8, 128
+DIST_PATH_KERNELS = ("chunk_hash", "delta_pack", "patch_scatter",
+                     "block_diff")
+ELASTIC_WAYS = 8
+# a sharded train step's parameter change against the plain step's, as a
+# share of the plain change's norm, leaf by leaf (a skipped update or a
+# wrong gradient gives ~1)
+DELTA_TOL = 0.1
 # the phases ``--only`` runs alone: each takes (torch, dev, workdir)
-TIMED_PHASES = ("phase2", "phase6")
+TIMED_PHASES = ("phase2", "phase6", "phase5", "phase7", "phase7b",
+                "phase7c", "phase7d")
 
 
 def fail(msg: str) -> None:
@@ -2248,6 +2284,298 @@ def phase7d(torch, dev, workdir: Path) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: distribution on the card (DTensor co-variables, one NCCL rank)
+# ---------------------------------------------------------------------------
+
+def phase8(torch, dev, workdir: Path) -> dict:
+    """SmolLM-360M (its first DIST_LAYERS layers, full width) as DTensors
+    under ShardingRules on a (1, 1) CUDA mesh of a one-rank NCCL group,
+    committed and checked out by a KishuSession over that group; see the
+    module docstring.  The group is destroyed on the way out."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+    from repro_torch.core import KishuSession, open_store
+    from repro_torch.core.delta import exact_dirty_indices
+    from repro_torch.core.graph import key_str
+    from repro_torch.core.namespace import flatten_tree
+    from repro_torch.core.serialize import global_image, tensor_from_bytes
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import init_file_group, make_local_mesh
+    from repro_torch.models.config import get_config
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.optim.compression import (compressed_psum,
+                                               quantized_psum, residual_init)
+    from repro_torch.sharding.resharding import (chunks_for_range,
+                                                 host_shard_ranges,
+                                                 load_byte_range)
+    from repro_torch.sharding.rules import ShardingRules, shard_train_state
+    from repro_torch.train import step as step_lib
+
+    rec: dict = {}
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    init_file_group("nccl", 0, 1, str(workdir / "pg_store"))
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "phase8: no one-rank NCCL group")
+        mesh = make_local_mesh(model=1)
+        check(mesh.device_type == "cuda", f"phase8: mesh on {mesh}")
+        cfg = get_config("smollm-360m").replace(n_layers=DIST_LAYERS)
+        opt = AdamWConfig(lr=1e-3)
+        rules = ShardingRules(cfg, mesh)
+        plain = step_lib.init_train_state(cfg, 0, opt, device=dev)
+        clone = step_lib.init_train_state(cfg, 0, opt, device=dev)
+        state = shard_train_state(clone, rules)
+        n_params = sum(t.numel() for t in tree_leaves(plain["params"]))
+        rec["params"] = n_params
+        print(f"phase8 {cfg.name}, first {DIST_LAYERS} of 32 layers: "
+              f"{n_params} params on a {tuple(mesh.shape)} "
+              f"{mesh.mesh_dim_names} NCCL mesh", flush=True)
+        hidden = (mesh, rules.hidden_spec(DIST_BATCH, DIST_SEQ))
+        sharded_fn = step_lib.make_train_step(cfg, opt,
+                                              hidden_sharding=hidden)
+        plain_fn = step_lib.make_train_step(cfg, opt)
+        g = torch.Generator(device=dev).manual_seed(11)
+        batches = [{k: torch.randint(0, cfg.vocab_size,
+                                     (DIST_BATCH, DIST_SEQ), device=dev,
+                                     generator=g, dtype=torch.int32)
+                    for k in ("tokens", "labels")} for _ in range(2)]
+        sess = KishuSession(open_store(f"dir://{workdir}/dist_cas"),
+                            chunk_bytes=CB, device=dev,
+                            group=dist.group.WORLD)
+        step_no = {"i": 0}
+
+        def train(ns):
+            st = ns.get_tree("state")
+            bt = batches[step_no["i"]]
+            bpl = rules.batch_spec(bt)
+            db = {k: distribute_tensor(v, mesh, list(bpl[k]))
+                  for k, v in bt.items()}
+            _, m = sharded_fn(st, db)
+            ns["metrics/loss"] = float(m["loss"].full_tensor())
+
+        def reinit(ns):
+            # SPMD: each rank writes the rows of its own shard
+            for name in ("state/params/embed", "state/opt/mu/embed",
+                         "state/opt/nu/embed"):
+                x = ns[name]
+                local = x.to_local()
+                rows = slice(VOCAB_ROWS[0], VOCAB_ROWS[1])
+                if name.endswith("params/embed"):
+                    gg = torch.Generator(device=dev).manual_seed(7)
+                    local[rows].normal_(0, 0.02, generator=gg)
+                else:
+                    local[rows].zero_()
+
+        sess.register("train", train)
+        sess.register("reinit", reinit)
+        # launches of the comparisons with plain tensors (the plain step,
+        # the plain commit) are taken out of the path's counts
+        held: dict = {}
+
+        class uncounted:
+            def __enter__(self):
+                self.before = _lib.launches()
+
+            def __exit__(self, *exc):
+                for k, v in _lib.launches().items():
+                    held[k] = held.get(k, 0) + v - self.before.get(k, 0)
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        c0 = sess.init_state({"state": state})
+        rec["attach_s"] = time.perf_counter() - t0
+        dt_names = [n for n in sess.ns.names()
+                    if isinstance(sess.ns[n], DTensor)]
+        check(len(dt_names) > 3 * 10, f"phase8: {len(dt_names)} DTensors")
+        rec["dtensor_covs"] = len(dt_names)
+        commits, steps = [c0], []
+        def images(tree):
+            return {k: global_image(v).to(torch.float32, copy=True)
+                    for k, v in flatten_tree(tree).items()}
+        for i in range(2):
+            step_no["i"] = i
+            old_s = images(sess.ns.get_tree("state/params"))
+            old_p = images(plain["params"])
+            t0 = time.perf_counter()
+            commits.append(sess.run("train"))
+            t_cell = time.perf_counter() - t0
+            with uncounted():
+                _, pm = plain_fn(plain, batches[i])
+            loss, ploss = sess.ns["metrics/loss"], float(pm["loss"])
+            flat_s = images(sess.ns.get_tree("state/params"))
+            flat_p = images(plain["params"])
+            err = max(float((flat_s[k] - flat_p[k]).abs().max())
+                      for k in flat_p)
+            same = all(torch.equal(flat_s[k], flat_p[k]) for k in flat_p)
+            # each leaf's change over the step against the plain step's
+            rel = 0.0
+            for k in flat_p:
+                dp = flat_p[k] - old_p[k]
+                off = float((flat_s[k] - old_s[k] - dp).norm())
+                den = float(dp.norm())
+                rel = max(rel, off / den if den else
+                          (0.0 if off == 0 else float("inf")))
+            del old_s, old_p, flat_s, flat_p
+            steps.append({"cell_s": t_cell, "loss": loss,
+                          "plain_loss": ploss, "max_param_err": err,
+                          "max_delta_rel_err": rel, "bit_identical": same})
+            print(f"phase8 step {i + 1}: sharded loss {loss:.6f}, plain "
+                  f"{ploss:.6f}, params max err {err:.3g}, change against "
+                  f"the plain change {rel:.3g} of its norm, bit-identical "
+                  f"{same}, cell {t_cell:.2f} s", flush=True)
+            check(abs(loss - ploss) < 1e-3 and err <= 2e-2
+                  and rel <= DELTA_TOL,
+                  f"phase8 step {i + 1}: sharded against plain {steps[-1]}")
+        rec["steps"] = steps
+        check(all(isinstance(sess.ns[n], DTensor) for n in dt_names),
+              "phase8: a DTensor co-variable lost its placements")
+
+        # the trained state committed as plain tensors: same keys, bytes
+        t0 = time.perf_counter()
+        c2 = commits[-1]
+        ref = KishuSession(open_store(f"dir://{workdir}/plain_cas"),
+                           chunk_bytes=CB, device=dev)
+        tensors = {n: global_image(sess.ns[n]).clone()
+                   if isinstance(sess.ns[n], DTensor) else sess.ns[n]
+                   for n in sess.ns.names()
+                   if isinstance(sess.ns[n], torch.Tensor)}
+        with uncounted():
+            rc = ref.init_state(tensors)
+        bad, n_keys, n_bytes = [], 0, 0
+        for n in tensors:
+            a = sess.graph.manifest_of(
+                (n,), sess.graph.nodes[c2].state_index[key_str((n,))])
+            b = ref.graph.manifest_of((n,), rc)
+            ka = [c["key"] for c in a["base"]["chunks"]]
+            kb = [c["key"] for c in b["base"]["chunks"]]
+            if ka != kb or a["base"]["det_hashes"] != \
+                    b["base"]["det_hashes"] or \
+                    a["base"]["meta"] != b["base"]["meta"]:
+                bad.append(n)
+                continue
+            got_a = sess.store.get_chunks(ka)
+            got_b = ref.store.get_chunks(kb)
+            if any(got_a[k] != got_b[k] for k in ka):
+                bad.append(n)
+            n_keys += len(ka)
+            n_bytes += sum(len(got_a[k]) for k in ka)
+        ref.close()
+        del tensors
+        rec["same_as_plain"] = {"chunks": n_keys, "bytes": n_bytes,
+                                "differ": bad,
+                                "s": time.perf_counter() - t0}
+        check(not bad and n_keys > 0, f"phase8: commit differs from the "
+              f"plain commit of the same values: {bad[:4]}")
+        print(f"phase8 commit = plain commit: {n_keys} chunk keys, "
+              f"{n_bytes} bytes", flush=True)
+
+        # sparse cycle: reinit_vocab_slice, patch checkout back, forward
+        snap2 = {n: global_image(sess.ns[n]).clone() for n in dt_names}
+        t0 = time.perf_counter()
+        cr = sess.run("reinit")
+        rec["reinit_s"] = time.perf_counter() - t0
+        rec["reinit_covs"] = sess.last_run.covs_updated
+        snapr = {n: global_image(sess.ns[n]).clone() for n in dt_names}
+        for label, cid, snap in (("back", c2, snap2), ("forward", cr, snapr)):
+            t0 = time.perf_counter()
+            st = sess.checkout(cid)
+            dt = time.perf_counter() - t0
+            dirty = {n: exact_dirty_indices(sess.ns[n], snap[n], CB)
+                     for n in dt_names}
+            bad = {n: d[:4] for n, d in dirty.items() if d}
+            rec[f"checkout_{label}"] = {"s": dt, "covs_patched":
+                                        st.covs_patched,
+                                        "covs_loaded": st.covs_loaded,
+                                        "chunks_patched": st.chunks_patched,
+                                        "bytes_loaded": st.bytes_loaded}
+            print(f"phase8 checkout {label}: {dt:.3f} s, "
+                  f"{st.covs_patched} patched ({st.chunks_patched} chunks),"
+                  f" {st.covs_loaded} loaded", flush=True)
+            check(not bad, f"phase8 checkout {label}: not exact: {bad}")
+            check(st.covs_patched >= 3, f"phase8 checkout {label}: "
+                  f"{st.covs_patched} co-variables patched")
+            check(all(isinstance(sess.ns[n], DTensor) for n in dt_names),
+                  f"phase8 checkout {label}: DTensors lost")
+        del snapr
+
+        # elastic restore of the trained commit onto 8-way Shard(0)
+        t0 = time.perf_counter()
+        name = "state/params/embed"
+        man = sess.graph.manifest_of(
+            (name,), sess.graph.nodes[c2].state_index[key_str((name,))])
+        shape = man["base"]["meta"]["shape"]
+        ranges = host_shard_ranges(shape, man["base"]["meta"]["dtype"],
+                                   (ELASTIC_WAYS,), [Shard(0)])
+        read: list = []
+        get = sess.store.get_chunks
+
+        def counting(keys, **kw):
+            read.extend(keys)
+            return get(keys, **kw)
+        parts, per_range = [], []
+        sess.store.get_chunks = counting
+        try:
+            for r in range(ELASTIC_WAYS):
+                (lo, hi), = ranges[r]
+                read.clear()
+                parts.append(load_byte_range(sess.store, man, lo, hi))
+                want = [man["base"]["chunks"][i]["key"]
+                        for i in chunks_for_range(man, lo, hi)]
+                per_range.append(len(read))
+                check(read == want, f"phase8 elastic rank {r}: read "
+                      f"{len(read)} chunks, range needs {len(want)}")
+        finally:
+            sess.store.get_chunks = get
+        whole = tensor_from_bytes(parts, man["base"]["meta"]["dtype"],
+                                  shape, dev)
+        diff = exact_dirty_indices(whole, snap2[name], CB)
+        rec["elastic"] = {"ways": ELASTIC_WAYS, "chunks_per_range":
+                          per_range, "s": time.perf_counter() - t0}
+        print(f"phase8 elastic restore of {name} onto {ELASTIC_WAYS}-way "
+              f"Shard(0): chunks per range {per_range}", flush=True)
+        check(not diff, f"phase8 elastic restore not exact: {diff[:4]}")
+        del snap2, whole, parts
+
+        # int8 compressed all-reduce over the NCCL group
+        gg = torch.Generator(device=dev).manual_seed(5)
+        grads = {"embed": torch.randn(shape, device=dev, generator=gg)
+                 * 1e-3}
+        mean, _ = compressed_psum(grads, residual_init(grads), mesh, "data")
+        s_int, scale, q = quantized_psum(grads["embed"].float(),
+                                         mesh.get_group("data"))
+        rel = float((mean["embed"] - grads["embed"]).abs().max()
+                    / grads["embed"].abs().max())
+        exact = bool(torch.equal(s_int, q.to(torch.int32)))
+        rec["compressed_psum"] = {"int32_sum_exact": exact,
+                                  "rel_err": rel,
+                                  "wire_dtype": str(q.dtype)}
+        check(exact and rel < 0.02 and q.dtype == torch.int8,
+              f"phase8 compressed_psum: {rec['compressed_psum']}")
+        sess.close()
+        rec["launches"] = {k: v - held.get(k, 0)
+                           for k, v in _lib.launches().items()}
+        rec["comparison_launches"] = held
+        for k in DIST_PATH_KERNELS:
+            check(rec["launches"][k] > 0,
+                  f"phase8: {k} never launched: {rec['launches']}")
+        # the attach hashes every DTensor co-variable on the card
+        check(rec["launches"]["chunk_hash"] >= len(dt_names),
+              f"phase8: chunk_hash {rec['launches']['chunk_hash']} for "
+              f"{len(dt_names)} DTensor co-variables")
+    finally:
+        dist.destroy_process_group()
+    rec["peak_allocated"] = torch.cuda.max_memory_allocated()
+    rec["peak_reserved"] = torch.cuda.max_memory_reserved()
+    rec["s"] = time.perf_counter() - t_all
+    print(f"phase8 launches {rec['launches']} (comparisons with plain "
+          f"tensors, not counted: {rec['comparison_launches']}), "
+          f"{rec['s']:.1f} s, peak "
+          f"allocated {rec['peak_allocated']} reserved "
+          f"{rec['peak_reserved']}", flush=True)
+    return rec
+
+
 def moe_capacity(cfg, n_tokens: int) -> int:
     from repro_torch.models.moe import capacity
     return capacity(n_tokens, cfg.moe)
@@ -2299,7 +2627,12 @@ def only_phases(torch, phases, root: Path) -> int:
             shutil.rmtree(workdir, ignore_errors=True)
         free_card(torch)
         times = {k: v for k, v in rec.items()
-                 if k.endswith("_s") and isinstance(v, (int, float))}
+                 if k.endswith(("_s", "_ms_per_step", "_bytes"))
+                 and isinstance(v, (int, float))}
+        if "generate_ms_per_step" in rec:
+            times["generate_ms_per_step"] = rec["generate_ms_per_step"]
+            times["busy_share_graph"] = \
+                rec["decode_profile"]["graph"]["busy_share"]
         print(f"timed {name} {root} {json.dumps(times)}", flush=True)
     return 0
 
@@ -2391,7 +2724,8 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for phase, fn in (("phase7", phase7), ("phase7b", phase7b),
-                      ("phase7c", phase7c), ("phase7d", phase7d)):
+                      ("phase7c", phase7c), ("phase7d", phase7d),
+                      ("phase8", phase8)):
         free_card(torch)
         workdir = Path(tempfile.mkdtemp(prefix=f"kishu_smoke_{phase}_"))
         try:

@@ -4,9 +4,12 @@ package registers all ten: the dense GQA decoders (``smollm-360m``,
 (``mamba2-780m``), the MoE decoder (``phi3.5-moe-42b-a6.6b``), the hybrid
 attention + SSM + MoE stack (``jamba-1.5-large-398b``), MLA + MoE + MTP
 (``deepseek-v3-671b``), the encoder-decoder (``whisper-large-v3``) and
-M-RoPE over precomputed embeddings (``qwen2-vl-72b``).  The JAX package's
-``configs/shapes.py`` (input specs and sharding cells) belongs to
-distribution and is not copied."""
+M-RoPE over precomputed embeddings (``qwen2-vl-72b``).
+
+``shapes`` holds the dry run's input shapes and abstract (``meta``) input
+specs.  The JAX package's ``configs/xla_flags.py`` configures XLA alone
+(host device counts, GPU backend flags) and has no counterpart here:
+torch runs no XLA."""
 from repro_torch.configs import (  # noqa: F401
     mamba2_780m,
     stablelm_12b,
@@ -19,6 +22,7 @@ from repro_torch.configs import (  # noqa: F401
     deepseek_v3_671b,
     qwen2_vl_72b,
 )
+from repro_torch.configs.shapes import SHAPES, cells, input_specs  # noqa: F401
 
 ARCH_IDS = [
     "mamba2-780m", "stablelm-12b", "smollm-360m", "mistral-nemo-12b",

@@ -23,6 +23,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import delta as delta_mod
 from repro_torch.core import parallel
@@ -34,6 +35,7 @@ from repro_torch.core.serialize import (ChunkMissingError, SerializationError,
                                         alias_key, base_of, leaf_from_bytes,
                                         leaf_meta, leaf_nbytes,
                                         view_from_base)
+from repro_torch.sharding.resharding import local_byte_range, restore_shard
 
 
 @dataclass
@@ -181,6 +183,9 @@ class StateLoader:
         # cost-based checkout planner (set by the session when plan_mode is
         # not off); None keeps the fixed patch->fetch->fallback ladder
         self.planner = None
+        # name -> (mesh, placements) of the DTensor co-variables (set by
+        # the session): these restore shard-locally on their placements
+        self.layouts: Dict[str, Tuple[Any, tuple]] = {}
 
     def _span(self, name: str, **args):
         return self.obs.span(name, **args) if self.obs is not None \
@@ -204,10 +209,29 @@ class StateLoader:
             consume(slab, got)
         return []
 
+    def _layout_of(self, key: CovKey):
+        """(mesh, placements) of a DTensor co-variable, else None."""
+        return self.layouts.get(key[0]) if len(key) == 1 else None
+
+    def _load_shard(self, key: CovKey, manifest: dict,
+                    stats: Optional[CheckoutStats]) -> Dict[str, Any]:
+        """A DTensor co-variable: this rank reads the chunks of its own
+        byte range and rebuilds its shard on its placements."""
+        mesh, placements = self._layout_of(key)
+        if manifest.get("unserializable"):
+            raise SerializationError("manifest flagged unserializable")
+        return {key[0]: restore_shard(self.store, manifest, mesh,
+                                      placements, self.device, stats)}
+
     def load_cov(self, key: CovKey, version: str,
                  stats: Optional[CheckoutStats] = None) -> Dict[str, Any]:
         manifest = self.graph.manifest_of(key, version)
-        if manifest is not None and not manifest.get("unserializable"):
+        if manifest is not None and self._layout_of(key) is not None:
+            try:
+                return self._load_shard(key, manifest, stats)
+            except (ChunkMissingError, SerializationError):
+                pass
+        elif manifest is not None and not manifest.get("unserializable"):
             hits = self._cache_probe(
                 [c["key"] for c in manifest["base"]["chunks"]], stats)
             try:
@@ -248,9 +272,10 @@ class StateLoader:
         ready: List[Tuple[CovKey, str, dict, List[str]]] = []
         for key, version in items:
             manifest = self.graph.manifest_of(key, version)
-            if manifest is None or manifest.get("unserializable"):
-                retry.append((key, version))
-            else:
+            if manifest is None or manifest.get("unserializable") \
+                    or self._layout_of(key) is not None:
+                retry.append((key, version))      # DTensors load shard-
+            else:                                 # locally (load_cov)
                 ready.append((key, version, manifest,
                               [c["key"] for c in manifest["base"]["chunks"]]))
 
@@ -368,7 +393,14 @@ class StateLoader:
 
         for key, version in retry:
             manifest = self.graph.manifest_of(key, version)
-            if manifest is not None and not manifest.get("unserializable"):
+            if manifest is not None and self._layout_of(key) is not None:
+                try:
+                    out[key] = self._load_shard(key, manifest, stats)
+                    continue
+                except (ChunkMissingError, SerializationError):
+                    pass
+            elif manifest is not None \
+                    and not manifest.get("unserializable"):
                 try:
                     # reuse prefetched chunks; absent keys retry the store
                     out[key] = materialize_manifest(
@@ -439,7 +471,16 @@ class StateLoader:
         if len(dirty) == len(tgt_det):
             return None                 # fully diverged: full load is cheaper
 
-        if isinstance(base, np.ndarray):
+        if isinstance(base, DTensor):
+            # a DTensor patches its local shard: only the dirty chunks in
+            # this rank's byte range are fetched
+            rng = local_byte_range(base)
+            if rng is None or not base.to_local().is_contiguous():
+                return None
+            dirty = [i for i in dirty if offsets[i] < rng[1]
+                     and offsets[i] + int(tgt_chunks[i]["n"]) > rng[0]]
+            is_device = True
+        elif isinstance(base, np.ndarray):
             if not (base.flags["C_CONTIGUOUS"] and base.flags["WRITEABLE"]):
                 return None
             try:

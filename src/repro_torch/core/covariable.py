@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.core import hashing
 from repro_torch.core.serialize import (OpaqueLeaf, alias_key, base_of,
+                                        global_image,
                                         dtype_name, is_array_leaf,
                                         leaf_nbytes, tensor_to_bytes,
                                         view_spec)
@@ -93,6 +94,7 @@ class RecordBuilder:
         key = alias_key(base)
         if key in cache:
             return cache[key]
+        base = global_image(base)          # a DTensor hashes its global image
         if self.hasher is hashing.chunk_hashes_np \
                 and isinstance(base, torch.Tensor):
             from repro_torch.core import delta as delta_mod

@@ -29,8 +29,9 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.core.serialize import tensor_bytes_u8
+from repro_torch.core.serialize import global_image, tensor_bytes_u8
 
 _log = logging.getLogger(__name__)
 
@@ -153,6 +154,7 @@ def device_delta_pack(base: Any, prev_hashes, chunk_bytes: int):
         return None
     if not isinstance(base, torch.Tensor):
         return None
+    base = global_image(base)
     nbytes = int(base.numel()) * base.element_size()
     if nbytes <= 0:
         return None
@@ -182,11 +184,32 @@ def patch_numpy_base(base: np.ndarray, segs: Sequence[Tuple[int, bytes]]
     return base
 
 
+def _local_segments(base: DTensor, segs: Sequence[Tuple[int, bytes]]
+                    ) -> Tuple[torch.Tensor, int, List[Tuple[int, bytes]]]:
+    """A DTensor's local shard, its global byte offset, and the parts of
+    global segments that fall in its range, at local offsets."""
+    from repro_torch.sharding.resharding import local_byte_range
+    rng = local_byte_range(base)
+    if rng is None:
+        raise ValueError("DTensor shard is not one byte range: no patch")
+    lo, hi = rng
+    out = []
+    for off, data in segs:
+        a, b = max(off, lo), min(off + len(data), hi)
+        if a < b:
+            out.append((a - lo, data[a - off:b - off]))
+    return base.to_local(), lo, out
+
+
 def patch_tensor_base(base: torch.Tensor, segs: Sequence[Tuple[int, bytes]]
                       ) -> torch.Tensor:
     """Write byte segments into a contiguous tensor's storage in place, one
     host→device copy per segment (the path for segments the fused scatter
-    cannot take).  Returns the same object."""
+    cannot take).  A DTensor writes the parts in its local shard.  Returns
+    the same object."""
+    if isinstance(base, DTensor):
+        patch_tensor_base(*_local_segments(base, segs)[::2])
+        return base
     flat = base.reshape(-1).view(torch.uint8)
     for off, data in segs:
         src = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
@@ -203,9 +226,20 @@ def patch_device_chunks(base: Any, segs: Sequence[Tuple[int, bytes]],
     Returns the bytes moved host→device, or ``None`` when the fused path
     does not apply — not a contiguous tensor, segments not whole chunks —
     and the caller writes the segments with :func:`patch_tensor_base`.
+
+    A DTensor patches its local shard: when the shard starts on a chunk
+    boundary, global chunk ``i`` is its local chunk ``i - lo/chunk_bytes``
+    (the segment cut at the shard's end is its last, partial chunk), so
+    the same scatter lands the chunks in its range.
     """
     if not segs or chunk_bytes <= 0 or chunk_bytes % 4:
         return None
+    if isinstance(base, DTensor):
+        local, lo, parts = _local_segments(base, segs)
+        if lo % chunk_bytes:
+            return None
+        return patch_device_chunks(local, parts, chunk_bytes) \
+            if parts else 0
     if not isinstance(base, torch.Tensor) or not base.is_contiguous():
         return None
     nbytes = int(base.numel()) * base.element_size()
@@ -255,6 +289,7 @@ def exact_dirty_indices(a: Any, b: Any, chunk_bytes: int) -> List[int]:
     launch raises), on the CPU its plain version runs.  Anything else
     (numpy arrays, a tensor against an array) is compared byte for byte on
     the host."""
+    a, b = global_image(a), global_image(b)
     if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
         from repro_torch.kernels.block_diff.ops import dirty_chunks
         return [int(i) for i in dirty_chunks(a, b, chunk_bytes)]

@@ -171,8 +171,12 @@ class CheckoutPlan:
 
 class CheckpointGraph:
     def __init__(self, store: ChunkStore, *, engine=None,
-                 recover: bool = True):
+                 recover: bool = True, read_only: bool = False):
         self.store = store
+        # a read-only graph (a follower rank of a distributed session)
+        # moves HEAD in memory only and never publishes; it learns new
+        # commits by reload()
+        self.read_only = read_only
         # commit publication routes through the transactional engine when
         # one is attached (txn.TxnEngine): journaled, group-committed,
         # fenced against async chunk writes.  Engine-less graphs still
@@ -192,6 +196,12 @@ class CheckpointGraph:
     # ------------------------------------------------------------------
     # persistence
     # ------------------------------------------------------------------
+    def reload(self) -> None:
+        """Re-read the published graph (another writer's new commits)."""
+        self.nodes, self.children = {}, {}
+        self.head, self._seq, self._meta_bytes = None, 0, 0
+        self._load()
+
     def _load(self) -> None:
         for name in self.store.list_meta("commit/"):
             doc = self.store.get_meta(name)
@@ -217,6 +227,8 @@ class CheckpointGraph:
             self.refs = ChunkRefCounts.from_nodes(self.nodes)
 
     def _persist(self, node: CommitNode) -> None:
+        if self.read_only:
+            raise RuntimeError("a read-only graph does not publish commits")
         doc = node.to_doc()
         self._meta_bytes += len(json.dumps(doc))
         self.refs.add(node.manifests)
@@ -281,6 +293,9 @@ class CheckpointGraph:
     def set_head(self, commit_id: str) -> None:
         assert commit_id in self.nodes, commit_id
         self.head = commit_id
+        if self.read_only:
+            self._seq += 1
+            return
         if self.engine is not None:
             # publish any queued commits first: durable HEAD must never
             # name a commit whose doc is still in an open group

@@ -26,15 +26,27 @@ Aliasing follows storage: the *base* of a tensor is its ``_base`` (the
 tensor it is a view of) or itself, and its alias key is the storage's
 ``data_ptr`` — two tensors over one storage are one co-variable, whatever
 their Python identity (DESIGN.md §2's numpy-view semantics).
+
+A DTensor leaf is its own base, keyed by its local shard's storage, and
+serializes as its *global* tensor (:func:`global_image`: ``full_tensor()``,
+a collective over its mesh), so its chunks, hashes and manifest are those
+of the same values held as one plain tensor — as the JAX package commits a
+sharded ``jax.Array`` by its global bytes.  Inside :func:`gathered_images`
+each DTensor is gathered once and reused; a session on several ranks
+gathers every touched DTensor there, in one order on every rank, so no
+later read issues a collective.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import pickle
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 class SerializationError(Exception):
@@ -101,11 +113,45 @@ def is_array_leaf(x: Any) -> bool:
     return isinstance(x, (np.ndarray, torch.Tensor))
 
 
+# the gathered global images of DTensors inside ``gathered_images``:
+# id -> (the DTensor, its image); None outside
+_IMAGES: contextvars.ContextVar = contextvars.ContextVar("dtensor_images",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def gathered_images():
+    """A scope in which :func:`global_image` gathers each DTensor at most
+    once; the images are dropped on exit."""
+    token = _IMAGES.set({})
+    try:
+        yield
+    finally:
+        _IMAGES.reset(token)
+
+
+def global_image(x: Any) -> Any:
+    """A DTensor's global tensor (a plain tensor on its mesh's device);
+    any other leaf as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    memo = _IMAGES.get()
+    hit = memo.get(id(x)) if memo is not None else None
+    if hit is not None and hit[0] is x:
+        return hit[1]
+    img = x.full_tensor()
+    if memo is not None:
+        memo[id(x)] = (x, img)
+    return img
+
+
 def base_of(x: Any) -> Any:
     """Ultimate base buffer of a (possibly viewed) array leaf."""
     if isinstance(x, np.ndarray):
         while isinstance(x.base, np.ndarray):
             x = x.base
+        return x
+    if isinstance(x, DTensor):
         return x
     if isinstance(x, torch.Tensor) and x._base is not None:
         return x._base
@@ -114,8 +160,11 @@ def base_of(x: Any) -> Any:
 
 def alias_key(base: Any) -> int:
     """Identity of a base buffer: the storage address for a tensor (views
-    and storage-sharing tensors agree on it), ``id()`` otherwise.  An empty
-    storage has no address, so it falls back to ``id()`` too."""
+    and storage-sharing tensors agree on it; a DTensor's is its local
+    shard's), ``id()`` otherwise.  An empty storage has no address, so it
+    falls back to ``id()`` too."""
+    if isinstance(base, DTensor):
+        base = base.to_local()
     if isinstance(base, torch.Tensor):
         st = base.untyped_storage()
         if st.nbytes() > 0:
@@ -160,8 +209,9 @@ def leaf_meta(x: Any) -> dict:
 
 def tensor_bytes_u8(t: torch.Tensor) -> torch.Tensor:
     """The C-order byte image of a tensor as a flat uint8 tensor on its own
-    device (a view when ``t`` is contiguous, else one compacting copy)."""
-    return t.reshape(-1).contiguous().view(torch.uint8)
+    device (a view when ``t`` is contiguous, else one compacting copy); a
+    DTensor's is its global image's."""
+    return global_image(t).reshape(-1).contiguous().view(torch.uint8)
 
 
 def tensor_to_bytes(t: torch.Tensor) -> bytes:

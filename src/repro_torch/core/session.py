@@ -28,6 +28,8 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import delta as delta_mod
 from repro_torch.core import hashing
@@ -41,6 +43,7 @@ from repro_torch.core.graph import (CheckpointGraph, key_str,
 from repro_torch.core.lease import Lease
 from repro_torch.core.namespace import Namespace, TrackedNamespace
 from repro_torch.core.restore import DataRestorer
+from repro_torch.core.serialize import gathered_images, global_image
 from repro_torch.core.txn import TxnEngine, global_live_chunks
 from repro_torch.core.txn import purge_tombstones as txn_purge_tombstones
 from repro_torch.obs import TRACE_META_PREFIX, SessionObs
@@ -111,7 +114,8 @@ class KishuSession:
                  chunk_cache: Optional[ChunkCache] = None,
                  trace: Optional[bool] = None,
                  plan_mode: Optional[str] = None,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 group=None):
         # multi-session knobs (DESIGN.md §14):
         #   tenant       — scope this session to `tenant/<id>/` metadata on
         #                  the shared store (chunks stay shared/deduped)
@@ -129,9 +133,19 @@ class KishuSession:
         #                  $KISHU_PLANNER, default off
         #   device       — where device-array leaves live and restore:
         #                  "cuda" (default) or an explicit "cpu"
+        #   group        — a torch.distributed process group whose ranks
+        #                  each run this session over one store (SPMD,
+        #                  DTensor leaves): rank 0 writes and publishes,
+        #                  the others follow (detect alike, write nothing,
+        #                  reload the graph); every rank checks out its
+        #                  own shards.  None: one process.
         from repro_torch.obs.instrument import InstrumentedStore
 
         self.device = resolve_device(device)
+        self.group = group
+        self.follower = group is not None and dist.get_rank(group) != 0
+        # a follower waits for rank 0 to open (recover, root) the graph
+        head = self._from_writer() if self.follower else None
 
         if tenant is not None and not isinstance(store, NamespacedStore):
             store = NamespacedStore(store, tenant)
@@ -155,7 +169,7 @@ class KishuSession:
         # back a journal requires proving its writer is gone, and holding
         # the namespace's writer lease is exactly that proof
         self.lease: Optional[Lease] = None
-        if lease_ttl_s is not None:
+        if lease_ttl_s is not None and not self.follower:
             self.lease = Lease(store, ttl_s=lease_ttl_s, obs=self.obs
                                ).acquire(wait_s=lease_wait_s,
                                          steal=lease_steal)
@@ -205,7 +219,9 @@ class KishuSession:
         # unsealed transactions are replayed or rolled back before loading
         # (activated so recovery counters attribute to this session)
         with self.obs.activate():
-            self.graph = CheckpointGraph(store, engine=self.engine)
+            self.graph = CheckpointGraph(store, engine=self.engine,
+                                         recover=not self.follower,
+                                         read_only=self.follower)
         self.registry: Dict[str, Callable] = {}
         self._replay_unsafe: set = set()   # register(replay_safe=False)
         self.records: Dict[str, Any] = {}
@@ -240,8 +256,12 @@ class KishuSession:
                   fn=lambda: self.chunk_cache.misses)
         reg.gauge("kishu_cache_bytes", fn=lambda: self.chunk_cache.bytes_used)
 
-        if not self.graph.nodes:
+        if self.follower:
+            self._follow(head)
+        elif not self.graph.nodes:
             self.graph.init_root()
+        if group is not None and not self.follower:
+            self._from_writer(self.graph.head)
 
     # ------------------------------------------------------------------
     # attachment & commands
@@ -284,9 +304,22 @@ class KishuSession:
         this cell's plan stage — the engine fences chunk durability on its
         own thread, so the cell loop never waits on the store's metadata
         round-trips."""
-        with self.obs.activate(), self.obs.span("commit", command=command):
+        with self.obs.activate(), self.obs.span("commit", command=command), \
+                gathered_images():
             plan = self._plan_run(command, args)
-            return self._execute_commit(plan, _message)
+            if self.group is None:
+                return self._execute_commit(plan, _message)
+            # rank 0 publishes the commit and then sends its id; the
+            # followers, waiting on it, read the commit back from the store
+            if not self.follower:
+                cid = self._execute_commit(plan, _message)
+                self.engine.flush()
+                return self._from_writer(cid)
+            self._follow(self._from_writer())
+            cid = self.graph.head
+            plan.stats.commit_id = cid
+            self.last_run = plan.stats
+            return cid
 
     def _plan_run(self, name: str, args: dict) -> "_RunPlan":
         """Stage 1: run the cell against the tracked namespace and detect
@@ -312,6 +345,13 @@ class KishuSession:
                     | set(self.tracked.deleted))
         if self.check_all:
             accessed = set(self.records) | set(self.ns.names())
+        # DTensor leaves: remember their layouts for checkout, and gather
+        # each global image now, in name order (the same on every rank),
+        # so detection and the write read them without a collective
+        self._note_layouts(accessed)
+        for leaf in sorted(accessed):
+            if leaf in self.ns and isinstance(self.ns[leaf], DTensor):
+                global_image(self.ns[leaf])
 
         t0 = time.perf_counter()
         with self.obs.span("detect"):
@@ -380,6 +420,37 @@ class KishuSession:
         self.last_run = stats
         return node.commit_id
 
+    def _from_writer(self, cid: Optional[str] = None) -> str:
+        """Rank 0 sends ``cid`` (a commit it has published) to every rank
+        of the group; a follower blocks until it arrives, so what it then
+        reads from the store includes that publish."""
+        box = [cid]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(
+            self.group, 0), group=self.group)
+        return box[0]
+
+    def _follow(self, cid: str) -> None:
+        """A follower's graph at rank 0's ``cid``: the published commits
+        re-read, HEAD set to ``cid`` in memory (the store's HEAD may
+        already name rank 0's next checkout)."""
+        self.graph.reload()
+        if cid not in self.graph.nodes:
+            raise RuntimeError(f"rank 0's commit {cid} is not in the store")
+        self.graph.head = cid
+
+    def _note_layouts(self, names) -> None:
+        """Record the (mesh, placements) of every DTensor among ``names``;
+        a name rebound to anything else loses its layout."""
+        for name in names:
+            if name not in self.ns:
+                continue
+            x = self.ns[name]
+            if isinstance(x, DTensor):
+                self.loader.layouts[name] = (x.device_mesh,
+                                             tuple(x.placements))
+            else:
+                self.loader.layouts.pop(name, None)
+
     def _check_quota(self, manifests: Dict[str, dict]) -> None:
         """Enforce the tenant byte quota *before* the commit publishes:
         current referenced bytes (from the refcount ledger) plus the bytes
@@ -415,6 +486,7 @@ class KishuSession:
             self.writer.flush()
             self.engine.flush()  # pending publishes land before time travel
             self.restorer.clear_memo()
+            self._note_layouts(self.ns.names())
             try:
                 self.records, stats = self.loader.checkout(
                     self.tracked, self.records, commit_id)
@@ -456,6 +528,7 @@ class KishuSession:
         including the first ancestor with another child or the HEAD path).
         Returns deleted commit ids. Run ``gc()`` afterwards to reclaim
         chunks."""
+        self._writer_only("delete_branch")
         assert tip != self.graph.head, "cannot delete the current branch"
         self.engine.flush()     # a queued publish must not resurrect a
                                 # commit tombstoned below
@@ -491,6 +564,7 @@ class KishuSession:
         deletes through the batched ``delete_chunks()`` — so every backend
         (single-file SQLite, sharded/replicated fabrics) reclaims space,
         and a fabric sweeps all its shards and replicas, strays included."""
+        self._writer_only("gc")
         self.writer.flush()
         self.engine.flush()     # unpublished manifests must be visible to
                                 # fsck/other readers before their chunks
@@ -527,11 +601,17 @@ class KishuSession:
         from repro_torch.obs import render
         return render([self.obs.registry])
 
+    def _writer_only(self, what: str) -> None:
+        if self.follower:
+            raise RuntimeError(f"{what} runs on rank 0 of a distributed "
+                               f"session only")
+
     def _persist_obs(self) -> None:
         """Best-effort span/metric snapshot under ``obs/trace/<sid>`` —
         only when tracing was opted into: the default path must add zero
         store writes (crash-injection op sweeps count every one)."""
-        if not self.obs.tracer.enabled or not self.obs.tracer.spans:
+        if self.follower or not self.obs.tracer.enabled \
+                or not self.obs.tracer.spans:
             return
         try:
             self.store.put_meta(TRACE_META_PREFIX + self.obs.sid,

@@ -10,10 +10,19 @@ Conventions
 -----------
 - activations: [batch, seq, d_model] unless noted
 - attention tensors: [batch, seq, heads, head_dim]
-- every product accumulates in float32 and is cast back to the activation
-  dtype where the JAX package casts (``preferred_element_type=float32``):
-  :func:`einsum_f32` upcasts its operands, so a bf16 product is exact in
-  float32 before the one rounding, on every device.
+- every product accumulates in float32 and gives a float32 result, cast
+  back to the activation dtype where the JAX package casts
+  (``preferred_element_type=float32``).  :func:`einsum_f32` keeps that
+  contract without a float32 copy of a bf16/f16 operand on the card: two
+  operands of one half dtype on CUDA go to cuBLAS as they are, through
+  ``mm``/``bmm`` with ``out_dtype=float32`` (float32 accumulation and
+  result); DTensor operands the same way on their local shards.  Its
+  backward splits the float32 cotangent exactly into three bf16 parts, so
+  gradients are the upcast path's up to float32 summation order (f16
+  operands upcast there).  Everything else — CPU tensors (the oracle; the
+  CPU has no ``mm.dtype``), float32 or mixed operands and the
+  three-operand SSD equations (``mamba.py``; activations only, no
+  weight) — upcasts the operands and runs ``torch.einsum`` in float32.
 - initialisers draw from a seeded ``torch.Generator`` on the target device.
   ``lead`` prepends the stacked-unit axis: the JAX package vmaps one unit's
   init over ``n_units`` keys, so every per-layer leaf has a leading
@@ -22,21 +31,327 @@ Conventions
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.models.config import ArchConfig
 
 Shape = Sequence[int]
 
 
+class EinsumPlan(NamedTuple):
+    """A two-operand einsum as one batched matrix product: ``a`` permuted
+    to [batch..., m..., k...] and reshaped to [B, M, K], ``b`` to
+    [batch..., k..., n...] -> [B, K, N]; the [B, M, N] product reshaped to
+    ``c_shape`` ([batch..., m..., n...]) and permuted by ``perm_out`` into
+    the equation's output order."""
+    perm_a: Tuple[int, ...]
+    a3: Tuple[int, int, int]
+    perm_b: Tuple[int, ...]
+    b3: Tuple[int, int, int]
+    c_shape: Tuple[int, ...]
+    perm_out: Tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=None)
+def einsum_plan(eq: str, shape_a: Tuple[int, ...], shape_b: Tuple[int, ...]
+                ) -> EinsumPlan:
+    """The permute/reshape decomposition of ``eq`` (``"ab,bc->ac"`` form,
+    two operands, explicit output) for operands of these shapes.  Labels
+    in both operands and the output are batch dims, in both operands only
+    contracted, in one operand and the output free.  A label in one
+    operand only and not in the output, a repeated label, or a size
+    mismatch raises ``ValueError``."""
+    lhs, out = eq.replace(" ", "").split("->")
+    la, lb = lhs.split(",")
+    if len(la) != len(shape_a) or len(lb) != len(shape_b):
+        raise ValueError(f"{eq}: operand ranks {len(shape_a)}, "
+                         f"{len(shape_b)}")
+    if len(set(la)) != len(la) or len(set(lb)) != len(lb) \
+            or len(set(out)) != len(out):
+        raise ValueError(f"{eq}: repeated label")
+    size = dict(zip(la, shape_a))
+    for c, n in zip(lb, shape_b):
+        if size.setdefault(c, n) != n:
+            raise ValueError(f"{eq}: label {c} is {size[c]} and {n}")
+    batch = [c for c in out if c in la and c in lb]
+    m = [c for c in out if c in la and c not in lb]
+    n = [c for c in out if c in lb and c not in la]
+    k = [c for c in la if c in lb and c not in out]
+    if sorted(batch + m + k) != sorted(la) or \
+            sorted(batch + n + k) != sorted(lb) or \
+            sorted(batch + m + n) != sorted(out):
+        raise ValueError(f"{eq}: a label is summed out of one operand")
+
+    def prod(labels):
+        return int(np.prod([size[c] for c in labels], dtype=np.int64))
+
+    c_order = batch + m + n
+    return EinsumPlan(
+        perm_a=tuple(la.index(c) for c in batch + m + k),
+        a3=(prod(batch), prod(m), prod(k)),
+        perm_b=tuple(lb.index(c) for c in batch + k + n),
+        b3=(prod(batch), prod(k), prod(n)),
+        c_shape=tuple(size[c] for c in c_order),
+        perm_out=tuple(c_order.index(c) for c in out))
+
+
+def _reshape(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    return x.reshape(shape)
+
+
+def einsum_via(eq: str, a: torch.Tensor, b: torch.Tensor, matmul,
+               view=_reshape) -> torch.Tensor:
+    """``eq`` on ``a``, ``b`` by :func:`einsum_plan` and ``matmul``
+    ([B,M,K] x [B,K,N] -> [B,M,N]).  Permutes are views; ``view(x,
+    shape)`` reshapes, copying only where the permuted dims cannot merge in
+    place (DTensors pass :func:`_dt_view`)."""
+    pl = einsum_plan(eq, tuple(a.shape), tuple(b.shape))
+    a3 = view(a.permute(pl.perm_a), pl.a3)
+    b3 = view(b.permute(pl.perm_b), pl.b3)
+    return view(matmul(a3, b3), pl.c_shape).permute(pl.perm_out)
+
+
+def _mm_f32(a3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+    """[B,M,K] x [B,K,N] half-precision operands -> float32 [B,M,N],
+    accumulated in float32 by cuBLAS (``aten::mm.dtype``/``bmm.dtype``)."""
+    if a3.shape[0] == 1:
+        return torch.mm(a3[0], b3[0], out_dtype=torch.float32)[None]
+    return torch.bmm(a3, b3, out_dtype=torch.float32)
+
+
+def _split_bf16(x: torch.Tensor) -> List[torch.Tensor]:
+    """Three bf16 tensors whose float32 sum is float32 ``x`` exactly: each
+    takes the next 8 significant bits of what the others leave (24 in
+    all)."""
+    parts = []
+    for _ in range(3):
+        parts.append(x.to(torch.bfloat16))
+        x = x - parts[-1].float()
+    return parts
+
+
+def _bmm_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """[B,M,K] x [B,K,N] -> float32, on local (plain) tensors.  Two float32
+    operands: ``bmm``.  Two of one half dtype: :func:`_mm_f32`.  A float32
+    operand (a cotangent) beside a bf16 one: the float32 one split exactly
+    by :func:`_split_bf16`, three :func:`_mm_f32` products summed — the
+    float32 product up to summation order, with no float32 copy of the
+    bf16 operand.  Anything else (f16 beside float32) upcasts both."""
+    if x.dtype == y.dtype == torch.float32:
+        return torch.bmm(x, y)
+    if x.dtype == y.dtype:
+        return _mm_f32(x, y)
+    if {x.dtype, y.dtype} == {torch.float32, torch.bfloat16}:
+        if x.dtype == torch.float32:
+            return sum(_mm_f32(p, y) for p in _split_bf16(x))
+        return sum(_mm_f32(x, p) for p in _split_bf16(y))
+    return torch.bmm(x.float(), y.float())
+
+
+# [B,M,K] x [B,K,N] on one mesh dim: (a3's, b3's, the product's)
+# placements that multiply shard by shard, and the dim they split
+# (0 B, 1 M, 2 K, 3 N)
+_LAYOUTS = ((Replicate(), Replicate(), Replicate(), None),
+            (Shard(0), Shard(0), Shard(0), 0),
+            (Shard(1), Replicate(), Shard(1), 1),
+            (Replicate(), Shard(2), Shard(2), 3),
+            (Shard(2), Shard(1), Partial(), 2))
+
+
+def _move_bytes(p, q, n: int, nbytes: int) -> float:
+    """Bytes a rank receives to take a tensor of ``nbytes`` local bytes
+    from placement ``p`` to ``q`` on a mesh dim of ``n`` ranks."""
+    if p == q or (isinstance(q, Shard) and p == Replicate()):
+        return 0.0                      # a local slice
+    if q == Replicate():
+        return (2.0 if p.is_partial() else n - 1.0) * nbytes
+    return float(nbytes)                # all-to-all, reduce-scatter
+
+
+def _bmm_layouts(x: DTensor, y: DTensor) -> list:
+    """(a3's, b3's, the product's) placements for each mesh dim: of
+    :data:`_LAYOUTS` whose split dim the mesh dims splitting it so far
+    divide evenly, the one that moves the fewest bytes — the operands'
+    redistribution plus the reduction a partial product will need, as
+    DTensor's own propagation weighs them; the first on a tie."""
+    mesh = x.device_mesh
+    xl, yl = x.to_local(), y.to_local()
+    a_bytes = xl.numel() * xl.element_size()
+    b_bytes = yl.numel() * yl.element_size()
+    out_bytes = xl.shape[0] * xl.shape[1] * yl.shape[2] * 4
+    size = (x.shape[0], x.shape[1], x.shape[2], y.shape[2])
+    ways = [1, 1, 1, 1]
+    out = []
+    for i, (pa, pb) in enumerate(zip(x.placements, y.placements)):
+        n = mesh.size(i)
+
+        def cost(lay):
+            qa, qb, qo, d = lay
+            if d is not None and size[d] % (ways[d] * n):
+                return float("inf")
+            return _move_bytes(pa, qa, n, a_bytes) \
+                + _move_bytes(pb, qb, n, b_bytes) \
+                + (out_bytes if qo.is_partial() else 0)
+        lay = min(_LAYOUTS, key=cost)
+        if lay[3] is not None:
+            ways[lay[3]] *= n
+        out.append(lay)
+    return out
+
+
+def _dt_bmm(x: torch.Tensor, y: torch.Tensor) -> DTensor:
+    """:func:`_bmm_f32` of two [B,M,K] x [B,K,N] operands, a DTensor among
+    them (a plain one acts as replicated): both redistributed by
+    :func:`_bmm_layouts`, the product of the local shards, a DTensor on
+    the product's placements (partial where the contraction is
+    sharded)."""
+    mesh = (x if isinstance(x, DTensor) else y).device_mesh
+    x, y = (t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False) for t in (x, y))
+    lay = _bmm_layouts(x, y)
+    x = x.redistribute(mesh, [q[0] for q in lay])
+    y = y.redistribute(mesh, [q[1] for q in lay])
+    (bb, m, _), n = x.shape, y.shape[2]
+    return DTensor.from_local(_bmm_f32(x.to_local(), y.to_local()), mesh,
+                              [q[2] for q in lay], run_check=False,
+                              shape=(bb, m, n), stride=(m * n, n, 1))
+
+
+def _product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    if isinstance(x, DTensor) or isinstance(y, DTensor):
+        return _dt_bmm(x, y)
+    return _bmm_f32(x, y)
+
+
+def _grad_like(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A float32 gradient in ``x``'s dtype, on ``x``'s placements (a
+    partial one as replicated: each summand's gradient is the whole
+    gradient); a plain tensor's gradient plain."""
+    g = g.to(x.dtype)
+    if isinstance(x, DTensor):
+        return g.redistribute(x.device_mesh, [
+            Replicate() if q.is_partial() else q for q in x.placements])
+    return g.full_tensor() if isinstance(g, DTensor) else g
+
+
+class _MMF32(torch.autograd.Function):
+    """:func:`_product` with a backward (``mm.dtype`` has no derivative).
+    Both gradients are products (:func:`_product`) of the float32
+    cotangent with the other operand — on the card three bf16 products of
+    its exact split, the upcast path's float32 products up to summation
+    order — each rounded to its operand's dtype as the upcast path's
+    ``.float()`` backward rounds it."""
+
+    @staticmethod
+    def forward(ctx, a3, b3):
+        ctx.save_for_backward(a3, b3)
+        return _product(a3, b3)
+
+    @staticmethod
+    def backward(ctx, g):
+        a3, b3 = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _grad_like(_product(g, b3.transpose(1, 2)), a3)
+        if ctx.needs_input_grad[1]:
+            gb = _grad_like(_product(a3.transpose(1, 2), g), b3)
+        return ga, gb
+
+
+def _mm_f32_autograd(a3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and (a3.requires_grad or b3.requires_grad):
+        return _MMF32.apply(a3, b3)
+    return _product(a3, b3)
+
+
+def _half_on_card(ops: Sequence[torch.Tensor]) -> bool:
+    dt = ops[0].dtype
+    return len(ops) == 2 and dt in (torch.bfloat16, torch.float16) \
+        and all(o.dtype == dt and o.is_cuda for o in ops)
+
+
+def _reshape_groups(old: Sequence[int], new: Sequence[int]):
+    """Pair the dims of a pure merge/split reshape: a list of (old dims,
+    new dims) whose sizes multiply alike, in order."""
+    out, i, j = [], 0, 0
+    while i < len(old) or j < len(new):
+        gi, gj = [i], [j]
+        po = old[i] if i < len(old) else 1
+        pn = new[j] if j < len(new) else 1
+        i, j = i + 1, j + 1
+        while po != pn:
+            if po < pn:
+                po *= old[i]
+                gi.append(i)
+                i += 1
+            else:
+                pn *= new[j]
+                gj.append(j)
+                j += 1
+        out.append(([d for d in gi if d < len(old)],
+                    [d for d in gj if d < len(new)]))
+    return out
+
+
+def _legal_reshape(x: DTensor, shape: Sequence[int]) -> DTensor:
+    """``x.reshape(shape)`` for a DTensor, with every placement the view
+    cannot carry replicated first: a sharded dim must be the outermost of
+    the dims it merges with, and the outermost dim it splits into must
+    divide over its mesh dim."""
+    first = {olds[0]: shape[news[0]] for olds, news
+             in _reshape_groups(tuple(x.shape), tuple(shape))
+             if olds and news}
+    mesh = x.device_mesh
+    pl = [q if not isinstance(q, Shard) or (
+        q.dim in first and first[q.dim] % mesh.size(i) == 0)
+        else Replicate() for i, q in enumerate(x.placements)]
+    if pl != list(x.placements):
+        x = x.redistribute(mesh, pl)
+    return x.reshape(shape)
+
+
+class _DTReshape(torch.autograd.Function):
+    """:func:`_legal_reshape` both ways: the gradient is reshaped back
+    under the same rule."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = tuple(x.shape)
+        return _legal_reshape(x, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _legal_reshape(g, ctx.shape), None
+
+
+def _dt_view(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``einsum_via``'s view for DTensor operands: the reshape (and its
+    gradient's) first replicates what the view cannot carry."""
+    if isinstance(x, DTensor):
+        return _DTReshape.apply(x, tuple(shape))
+    return x.reshape(shape)
+
+
 def einsum_f32(eq: str, *ops: torch.Tensor) -> torch.Tensor:
-    """``einsum`` with float32 operands and result (the JAX package's
-    ``preferred_element_type=jnp.float32`` on bf16 or f32 inputs)."""
+    """``einsum`` with float32 accumulation and a float32 result (the JAX
+    package's ``preferred_element_type=jnp.float32``).  Two bf16 (or
+    two f16) CUDA operands run as one cuBLAS product of the operands as
+    they are, with no float32 copy of either, DTensors on their local
+    shards; any other call upcasts its operands (see the module
+    docstring)."""
+    if len(ops) == 2 and any(isinstance(o, DTensor) for o in ops):
+        if not _half_on_card(ops):
+            ops = tuple(o.float() for o in ops)
+        return einsum_via(eq, *ops, _mm_f32_autograd, view=_dt_view)
+    if _half_on_card(ops):
+        return einsum_via(eq, ops[0], ops[1], _mm_f32_autograd)
     return torch.einsum(eq, *[o.float() for o in ops])
 
 
@@ -215,6 +530,36 @@ def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
     return q, k, v
 
 
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True) -> torch.Tensor:
+    """``kernels.flash_attention``; DTensor q, k, v (a sharded prefill) run
+    it on their local shards.  Only the batch and the heads may stay
+    sharded, alike in q, k and v (the kernel sees whole sequences and
+    whole GQA groups), and only where every sharding mesh dim divides
+    them; any other placement is replicated first."""
+    if not isinstance(q, DTensor):
+        return flash_attention(q, k, v, causal=causal)
+    mesh = q.device_mesh
+    ways = {0: 1, 2: 1}
+    pl = []
+    for i, p in enumerate(q.placements):
+        d = p.dim % 4 if type(p) is Shard else None
+        n = ways[d] * mesh.size(i) if d in ways else 0
+        if n and all(t.shape[d] % n == 0 for t in (q, k, v)):
+            ways[d] = n
+            pl.append(p)
+        else:
+            pl.append(Replicate())
+    local = [t.redistribute(mesh, pl).to_local() for t in (q, k, v)]
+    # meta shards (the dry run) have no kernel: the plain version's shapes
+    run = flash_attention_plain if local[0].is_meta else flash_attention
+    out = run(*local, causal=causal)
+    b, s, h, hd = q.shape
+    return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False,
+                              shape=(b, s, h, hd),
+                              stride=(s * h * hd, h * hd, hd, 1))
+
+
 def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, causal: bool = True,
                 training: bool = False) -> torch.Tensor:
@@ -229,7 +574,7 @@ def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     if training:
         out = attention_core(q, k, v, causal=causal)
     else:
-        out = flash_attention(q, k, v, causal=causal)
+        out = _flash(q, k, v, causal=causal)
     return einsum_f32("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
 
 
@@ -368,7 +713,7 @@ def _mla_attend(p: dict, cfg: ArchConfig, q_nope: torch.Tensor,
                          f"the qk head dim {qk_hd}; the flash kernel's "
                          f"scale would not be MLA's")
     v = F.pad(v, (0, qk_hd - m.v_head_dim))
-    return flash_attention(q, k, v, causal=True)[..., :m.v_head_dim]
+    return _flash(q, k, v, causal=True)[..., :m.v_head_dim]
 
 
 def mla_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,

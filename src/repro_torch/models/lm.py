@@ -40,6 +40,7 @@ from repro_torch.core.session import resolve_device
 from repro_torch.models import layers, mamba
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding.context import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -268,11 +269,16 @@ def _run_stages(stages_params: dict, stage_specs: List[StageSpec],
                 cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
                 *, enc_out: Optional[torch.Tensor] = None,
                 training: bool = False,
-                routes: Optional[List[moe_lib.Route]] = None
+                routes: Optional[List[moe_lib.Route]] = None,
+                hidden_sharding=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All stages in order.  Returns (x, the MoE aux loss summed over
-    layers)."""
+    layers).  ``hidden_sharding`` (a ``(mesh, placements)`` layout) is
+    applied to the residual stream before the first stage and after each,
+    as the JAX package's ``with_sharding_constraint``: a ``redistribute``
+    of DTensor activations, nothing for plain tensors."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = constrain(x, hidden_sharding)
     for i, stage in enumerate(stage_specs):
         units = _unstack(stages_params[f"stage_{i}"], stage.n_units)
         for unit_params in units:
@@ -281,6 +287,7 @@ def _run_stages(stages_params: dict, stage_specs: List[StageSpec],
                                       positions, enc_out=enc_out,
                                       training=training, routes=routes)
                 aux_total = aux_total + aux
+        x = constrain(x, hidden_sharding)
     return x, aux_total
 
 
@@ -298,7 +305,8 @@ def embed_inputs(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *,
             training: bool = False, return_aux: bool = False,
-            routes: Optional[List[moe_lib.Route]] = None):
+            routes: Optional[List[moe_lib.Route]] = None,
+            hidden_sharding=None):
     """Full-sequence forward. Returns float32 logits [B,S,V] (and an aux
     dict: ``moe_aux``, the MoE load-balance loss summed over layers — a
     float32 zero without MoE layers — and, for an MTP model with
@@ -309,7 +317,8 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *,
 
     ``training=False`` (the prefill) sends attention through the flash
     kernel, which is forward-only; ``training=True`` keeps the plain
-    attention that autograd differentiates."""
+    attention that autograd differentiates.  ``hidden_sharding``: see
+    :func:`_run_stages`."""
     x = embed_inputs(cfg, params, batch)
     bsz, seq, _ = x.shape
     positions = _positions_of(batch, cfg, seq, bsz, device=x.device)
@@ -318,7 +327,7 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *,
         if cfg.enc_dec else None
     x, aux = _run_stages(params["stages"], build_stages(cfg), cfg, x,
                          positions, enc_out=enc_out, training=training,
-                         routes=routes)
+                         routes=routes, hidden_sharding=hidden_sharding)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(cfg, params, x)
     if not return_aux:

@@ -10,8 +10,10 @@ Shapes: x_head [B,S,H,P], dt [B,S,H], A [H] (negative), B/C broadcast from
 [B,S,G,N] groups to heads.  State: [B,H,P,N], float32.
 
 The leaves, shapes, dtypes and casts are the JAX package's (every product
-accumulates in float32 and is cast where the JAX package casts), with two
-departures:
+accumulates in float32 and is cast where the JAX package casts).  The two
+three-operand einsums of :func:`ssd_chunked` (``s_local``, ``y_inter``)
+act on activations only, not on weights, and keep
+:func:`layers.einsum_f32`'s upcast path.  Two departures:
 
 - :func:`ssd_chunked` masks the intra-chunk decay *before* its ``exp``
   (``exp(where(mask, diff, -inf))``).  The JAX package takes ``exp`` of

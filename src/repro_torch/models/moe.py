@@ -11,9 +11,15 @@ depends on the routing alone, never on the order kernels run in.
 
 No step reads a value back to the host (the counts come from
 ``scatter_add_``, not ``bincount`` or ``nonzero``), so the decode step
-stays capturable in a CUDA graph.  The JAX package's sharding constraints
-(``repro.sharding.context``, ZeRO-style expert-weight gathers) have no
-meaning on one device and are left out; they belong to distribution.
+stays capturable in a CUDA graph.
+
+Inside ``sharding.context.moe_weight_gather`` the expert weights are
+redistributed to the dispatch layout at use time (ZeRO-style gather) and,
+with ``moe_dispatch_shard``, the dispatch buffer and the hidden
+activations are constrained to expert-sharded layouts, where the JAX
+package applies its sharding constraints.  These act on DTensors only:
+without the context, or on plain tensors, the layer does exactly what it
+does on one device.
 """
 from __future__ import annotations
 
@@ -22,10 +28,12 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig, MoEConfig
 from repro_torch.models.layers import Shape, einsum_f32
+from repro_torch.sharding import context as shctx
 
 # one MoE layer's routing: expert ids [B,S,K] int32, kept [B,S,K] bool
 Route = Tuple[torch.Tensor, torch.Tensor]
@@ -95,18 +103,42 @@ def dispatch_indices(top_e: torch.Tensor, n_experts: int, cap: int
     return dest, valid
 
 
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _replicated(x: torch.Tensor, mesh) -> DTensor:
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
                 routes: Optional[List[Route]] = None) -> torch.Tensor:
     """x: [B,S,d] -> [B,S,d].  Where ``routes`` is a list, the layer's
     routing is appended to it: (expert ids [B,S,K] int32, kept [B,S,K]
-    bool — False where the assignment was dropped at capacity)."""
+    bool — False where the assignment was dropped at capacity).
+
+    With DTensor activations the routing and the dispatch indices run on
+    the gathered tokens, alike on every rank (their integer ops have no
+    sharding rules), the dispatch buffer enters the expert products as a
+    replicated DTensor against the sharded expert weights, and the output
+    returns to ``x``'s placements."""
+    if isinstance(x, DTensor):
+        mesh, placements = x.device_mesh, x.placements
+        out = _moe(p, cfg, x.full_tensor(), routes, mesh)
+        return _replicated(out, mesh).redistribute(mesh, placements)
+    return _moe(p, cfg, x, routes, None)
+
+
+def _moe(p: dict, cfg: ArchConfig, x: torch.Tensor,
+         routes: Optional[List[Route]], mesh) -> torch.Tensor:
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
     cap = capacity(t, m)
 
-    top_p, top_e = route(p["router"], xt, m)
+    top_p, top_e = route(_whole(p["router"]), xt, m)
     dest, valid = dispatch_indices(top_e, m.n_experts, cap)
     if routes is not None:
         routes.append((top_e.reshape(b, s, m.top_k),
@@ -117,11 +149,26 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     buf = torch.zeros((m.n_experts * cap + 1, d), dtype=x.dtype,
                       device=x.device).index_copy_(0, dest, x_rep)
     buf = buf[:-1].reshape(m.n_experts, cap, d)
+    if mesh is not None:
+        buf = _replicated(buf, mesh)
 
-    g = einsum_f32("ecd,edf->ecf", buf, p["w_gate"])
-    u = einsum_f32("ecd,edf->ecf", buf, p["w_up"])
+    # optional ZeRO-style weight gather (sharding/context.py): the expert
+    # weights are gathered to the dispatch layout instead of reducing the
+    # dispatch-sized product outputs across ranks
+    w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
+    shs = shctx.get_moe_weight_shardings()
+    if shs is not None:
+        w_gate = shctx.constrain(w_gate, shs[0])
+        w_up = shctx.constrain(w_up, shs[1])
+        w_down = shctx.constrain(w_down, shs[2])
+        buf = shctx.constrain(buf, shs[3])
+
+    g = einsum_f32("ecd,edf->ecf", buf, w_gate)
+    u = einsum_f32("ecd,edf->ecf", buf, w_up)
     h = (F.silu(g) * u).to(x.dtype)
-    y = einsum_f32("ecf,efd->ecd", h, p["w_down"]).to(x.dtype)
+    if shs is not None:
+        h = shctx.constrain(h, shs[4])
+    y = _whole(einsum_f32("ecf,efd->ecd", h, w_down).to(x.dtype))
 
     y = torch.cat([y.reshape(m.n_experts * cap, d),
                    torch.zeros((1, d), dtype=y.dtype, device=y.device)])
@@ -131,13 +178,15 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
         .sum(dim=1).to(x.dtype)
 
     if m.n_shared_experts:
-        out = out + layers.mlp_forward(p["shared"], x).reshape(t, d)
+        out = out + _whole(layers.mlp_forward(p["shared"], x)).reshape(t, d)
     return out.reshape(b, s, d)
 
 
 def aux_load_balance_loss(router_w: torch.Tensor, x_flat: torch.Tensor,
                           mcfg: MoEConfig) -> torch.Tensor:
-    """Switch-style load-balancing auxiliary loss (float32 scalar)."""
+    """Switch-style load-balancing auxiliary loss (float32 scalar; over
+    the gathered tokens for DTensors, as :func:`moe_forward` routes)."""
+    x_flat, router_w = _whole(x_flat), _whole(router_w)
     logits = einsum_f32("td,de->te", x_flat, router_w)
     probs = torch.softmax(logits, dim=-1)
     top1 = probs.argmax(dim=-1)

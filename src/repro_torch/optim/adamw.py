@@ -16,6 +16,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.serialize import torch_dtype
 
@@ -45,10 +46,20 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def _zeros_like(p: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Zeros of ``p``'s shape in ``dt``; a DTensor's moments inherit its
+    mesh and placements (the JAX package's moments inherit the parameter
+    sharding through the same tree paths)."""
+    if isinstance(p, DTensor):
+        return torch.zeros_like(p, dtype=dt)
+    return torch.zeros(p.shape, dtype=dt, device=p.device)
+
+
 def adamw_init(params: Any, cfg: AdamWConfig) -> Dict[str, Any]:
     dt = torch_dtype(cfg.moment_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
-    leaves = tree_leaves(params)
+    zeros = lambda p: _zeros_like(p, dt)
+    leaves = [x.to_local() if isinstance(x, DTensor) else x
+              for x in tree_leaves(params)]
     device = leaves[0].device if leaves else None
     return {
         "mu": tree_map(zeros, params),

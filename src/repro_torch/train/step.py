@@ -9,10 +9,13 @@ tied embedding its alias) from one step to the next.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.core.session import resolve_device
 from repro_torch.models import lm
@@ -41,10 +44,34 @@ def init_train_state(cfg: ArchConfig, seed: int, opt_cfg: AdamWConfig,
     }
 
 
+def spmd(tree: Any):
+    """The context a step over ``tree`` runs in: DTensor's implicit
+    replication (plain tensors the step makes — positions, masks, RoPE
+    tables, scalars — act as replicated) when a leaf is a DTensor, else
+    nothing."""
+    if any(isinstance(x, DTensor) for x in tree_leaves(tree)):
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _whole_last_dim(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor sharded on its last dim (vocab-sharded logits)
+    redistributed with that dim whole; anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    last = x.ndim - 1
+    pl = [Replicate() if isinstance(q, Shard) and q.dim in (-1, last) else q
+          for q in x.placements]
+    return x.redistribute(x.device_mesh, pl)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   true_vocab: int) -> torch.Tensor:
     """Mean token cross-entropy; columns >= true_vocab are masked padding
-    columns of the padded embedding table (set to -1e30)."""
+    columns of the padded embedding table (set to -1e30).  Vocab-sharded
+    DTensor logits are gathered along the vocab first (the gold-logit
+    ``gather`` needs the whole row)."""
+    logits = _whole_last_dim(logits)
     v = logits.shape[-1]
     if true_vocab < v:
         mask = torch.arange(v, device=logits.device) >= true_vocab
@@ -55,14 +82,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def make_loss_fn(cfg: ArchConfig, *, moe_aux_coef: float = 0.01,
-                 mtp_coef: float = 0.1):
+                 mtp_coef: float = 0.1, hidden_sharding=None):
     """``loss_fn(params, batch) -> (total, {"loss", "moe_aux"})``: the
     token cross-entropy, plus ``moe_aux_coef`` times the MoE aux loss, plus
     for an MTP model ``mtp_coef`` times the t+2 cross-entropy (labels
     shifted by one more, the last repeated), as in the JAX package."""
     def loss_fn(params, batch):
         logits, aux = lm.forward(cfg, params, batch, training=True,
-                                 return_aux=True)
+                                 return_aux=True,
+                                 hidden_sharding=hidden_sharding)
         loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
         total = loss + moe_aux_coef * aux["moe_aux"]
         if "mtp_logits" in aux:
@@ -75,7 +103,8 @@ def make_loss_fn(cfg: ArchConfig, *, moe_aux_coef: float = 0.01,
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
-                    microbatches: int = 1, moe_aux_coef: float = 0.01):
+                    microbatches: int = 1, moe_aux_coef: float = 0.01,
+                    hidden_sharding=None):
     """Returns ``train_step(state, batch, lr=None) -> (state, metrics)``;
     the returned state is ``state``, updated in place.
 
@@ -84,10 +113,18 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     gradients are summed over the microbatches in order, and the gradients,
     ``total`` and the aux metrics are scaled by ``1/microbatches`` before
     the one AdamW update.  An MTP model's t+2 loss is part of ``total``
-    in each microbatch, as the MoE aux loss is."""
+    in each microbatch, as the MoE aux loss is.
+
+    A state of DTensors (placements from ``sharding.ShardingRules``) runs
+    as one SPMD program over their mesh: the batch's DTensors shard the
+    tokens, each gradient is redistributed to its parameter's placements
+    before the update, and the moments keep them.  ``hidden_sharding``
+    (a ``(mesh, placements)`` layout) constrains the residual stream
+    (:func:`lm.forward`); it is a no-op on plain tensors."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
-    loss_fn = make_loss_fn(cfg, moe_aux_coef=moe_aux_coef)
+    loss_fn = make_loss_fn(cfg, moe_aux_coef=moe_aux_coef,
+                           hidden_sharding=hidden_sharding)
 
     def grads_of(params, batch):
         # detached leaves share the state's storage: autograd sees fresh
@@ -97,6 +134,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
             total, aux = loss_fn(leaves, batch)
             flat = tree_leaves(leaves)
             gflat = torch.autograd.grad(total, flat)
+        gflat = [g.redistribute(x.device_mesh, x.placements)
+                 if isinstance(x, DTensor) else g
+                 for x, g in zip(flat, gflat)]
         by_id = {id(x): g for x, g in zip(flat, gflat)}
         return total.detach(), {k: v.detach() for k, v in aux.items()}, \
             tree_map(lambda x: by_id[id(x)], leaves)
@@ -126,8 +166,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    lr: Optional[float] = None
                    ) -> Tuple[TrainState, Dict[str, Any]]:
-        total, aux, grads = accumulated(state["params"], batch)
-        om = adamw_update(grads, state["opt"], state["params"], opt_cfg, lr)
+        with spmd(state["params"]):
+            total, aux, grads = accumulated(state["params"], batch)
+            om = adamw_update(grads, state["opt"], state["params"], opt_cfg,
+                              lr)
         state["step"].add_(1)
         metrics = {"total_loss": total, **aux, **om,
                    "step": state["step"].clone()}
@@ -136,15 +178,19 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig):
+def make_prefill_step(cfg: ArchConfig, hidden_sharding=None):
     """``prefill_step(params, batch) -> logits [B,S,V]`` (float32,
     sampling-ready): the inference forward under ``no_grad``, whose
     attention is the flash kernel on the card.  The batch passes through
     whole: ``tokens`` or ``embeds``, ``positions_thw`` (M-RoPE) and
-    ``enc_embeds`` (enc-dec, encoded in the same call)."""
+    ``enc_embeds`` (enc-dec, encoded in the same call).
+    DTensor params run it as one SPMD program (the flash kernel on each
+    rank's local batch and heads); ``hidden_sharding``: as in
+    :func:`make_train_step`."""
     def prefill_step(params, batch):
-        with torch.no_grad():
-            return lm.forward(cfg, params, batch, training=False)
+        with torch.no_grad(), spmd(params):
+            return lm.forward(cfg, params, batch, training=False,
+                              hidden_sharding=hidden_sharding)
     return prefill_step
 
 

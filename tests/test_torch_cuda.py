@@ -1640,3 +1640,189 @@ def test_replayed_attach_is_checked_on_the_card(dev, tmp_path, changed):
                                  rf"{n_chunks[changed]}"):
             s.checkout(c0)
     s.close()
+
+
+# ---------------------------------------------------------------------------
+# bf16 products with float32 accumulation (einsum_f32's card route)
+# ---------------------------------------------------------------------------
+
+def _route_equations():
+    from test_torch_einsum_route import TWO_OPERAND, _operands
+    return TWO_OPERAND, _operands
+
+
+def test_einsum_f32_makes_no_float32_copy_of_its_weight(dev):
+    """A 64 MiB bf16 weight through ``bsd,df->bsf``: the peak above the
+    operands stays under half the weight's float32 copy (128 MiB); the
+    upcast path, for contrast, allocates that copy."""
+    from repro_torch.models import layers
+    w = torch.randn(4096, 8192, device=dev).to(torch.bfloat16)
+    x = torch.randn(1, 8, 4096, device=dev).to(torch.bfloat16)
+    copy = w.numel() * 4
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = layers.einsum_f32("bsd,df->bsf", x, w)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32
+    assert torch.cuda.max_memory_allocated() - base < copy // 2
+    torch.cuda.reset_peak_memory_stats()
+    up = torch.einsum("bsd,df->bsf", x.float(), w.float())
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base >= copy
+    del up
+
+
+@pytest.mark.parametrize("reduced_precision", [False, True])
+def test_einsum_f32_route_matches_the_upcast_path(dev, reduced_precision):
+    """Every two-operand equation of the port, bf16 and f16 operands: the
+    cuBLAS route's float32 result against the upcast einsum's, within
+    float32 summation-order error (2**-16 of the sum of |products|),
+    whether or not bf16 reduced-precision reductions are allowed — the
+    flag must not reach a float32-output product."""
+    from repro_torch.models import layers
+    eqs, operands = _route_equations()
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        reduced_precision
+    try:
+        for eq in eqs:
+            for dtype in (torch.bfloat16, torch.float16):
+                a, b = [o.to(dev) for o in operands(eq, 7, dtype)]
+                a = a * 16                       # longer contractions too
+                got = layers.einsum_f32(eq, a, b)
+                want = torch.einsum(eq, a.float(), b.float())
+                scale = torch.einsum(eq, a.float().abs(), b.float().abs())
+                assert got.dtype == torch.float32
+                assert bool((got - want).abs().le(
+                    scale * 2.0 ** -16 + 1e-30).all()), (eq, dtype)
+            a = torch.randn(64, 4096, device=dev).to(torch.bfloat16)
+            b = torch.randn(4096, 512, device=dev).to(torch.bfloat16)
+            got = layers.einsum_f32("td,de->te", a, b)
+            want = a.float() @ b.float()
+            assert float((got - want).abs().max()) < 1e-3
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-780m",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "deepseek-v3-671b", "whisper-large-v3"])
+def test_every_call_site_takes_the_route_and_keeps_its_dtype(
+        dev, arch, monkeypatch):
+    """A bf16 forward and decode step of each family: every two-operand
+    ``einsum_f32`` call with bf16 operands takes the cuBLAS route, every
+    call returns float32 (each call site then casts as the JAX package
+    does), and the logits are float32 and close to the upcast path's."""
+    from repro_torch.models import layers, lm, mamba
+    from repro_torch.models import moe as moe_lib
+    cfg, params = _family_setup(dev, arch)
+    seen = []
+    real = layers.einsum_f32
+
+    def spy(eq, *ops):
+        out = real(eq, *ops)
+        seen.append((eq, [o.dtype for o in ops], layers._half_on_card(ops),
+                     out.dtype))
+        return out
+    for mod in (layers, mamba, moe_lib):
+        monkeypatch.setattr(mod, "einsum_f32", spy)
+    b, s = 2, 8
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=g).to(dev)}
+    if cfg.enc_dec:
+        batch["enc_embeds"] = torch.randn(b, s, cfg.d_model, generator=g) \
+            .to(dev, torch.bfloat16)
+    with torch.no_grad():
+        logits = lm.forward(cfg, params, batch, training=True)
+    assert logits.dtype == torch.float32
+    two = [x for x in seen if len(x[1]) == 2]
+    assert two and all(x[3] == torch.float32 for x in seen)
+    for eq, dts, routed, _ in two:
+        half = dts[0] == dts[1] == torch.bfloat16
+        assert routed == half, (eq, dts)
+    monkeypatch.setattr(layers, "_half_on_card", lambda ops: False)
+    with torch.no_grad():
+        up = lm.forward(cfg, params, batch, training=True)
+    tol = 0.05 * float(up.abs().max())
+    assert float((logits - up).abs().max()) <= tol
+
+
+def test_backward_through_a_bf16_dense_layer_matches_the_upcast(
+        dev, monkeypatch):
+    """Backward through the route's autograd function against the upcast
+    path's.  One bf16 dense product: the backward splits the float32
+    cotangent exactly into three bf16 parts, so each gradient element is
+    within one bf16 rounding step (2**-7 relative, plus 2**-16 of the
+    largest where a sum cancels) and fewer than 1% differ at all.  A bf16
+    SwiGLU MLP (three products in a chain, each gradient rounded to bf16
+    on the way): within 2**-6 of the largest."""
+    from repro_torch.models import layers
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x0 = torch.randn(4, 16, 256, device=dev, generator=gen) \
+        .to(torch.bfloat16)
+    w0 = (torch.randn(256, 512, device=dev, generator=gen) / 16) \
+        .to(torch.bfloat16)
+    p0 = layers.mlp_init(gen, 256, 512, torch.bfloat16)
+    dense, mlp = [], []
+    for routed in (True, False):
+        if not routed:
+            monkeypatch.setattr(layers, "_half_on_card", lambda ops: False)
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        y = layers.einsum_f32("bsd,df->bsf", x, w)
+        (y.square().sum() * 0.5).backward()
+        assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+        dense.append((x.grad.float(), w.grad.float()))
+        p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        x = x0.clone().requires_grad_(True)
+        layers.mlp_forward(p, x).float().square().mean().backward()
+        mlp.append([x.grad.float()] + [p[k].grad.float() for k in p])
+    for got, want in zip(*dense):
+        d = (got - want).abs()
+        tol = 2.0 ** -7 * want.abs() + 2.0 ** -16 * want.abs().max()
+        assert bool(d.le(tol).all())
+        assert float(d.gt(0).float().mean()) < 0.01
+    for got, want in zip(*mlp):
+        tol = 2.0 ** -6 * float(want.abs().max())
+        assert float((got - want).abs().max()) <= tol
+
+
+def test_dtensor_einsum_runs_the_route_on_local_shards(dev, tmp_path):
+    """bf16 DTensor operands on a one-rank NCCL (1, 1) mesh: the product
+    runs on the local shards through the cuBLAS route, with no float32
+    copy of the 64 MiB weight, and equals the plain route, forward and
+    backward, bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.launch.mesh import init_file_group, make_local_mesh
+    from repro_torch.models import layers
+    init_file_group("nccl", 0, 1, str(tmp_path / "pg"))
+    try:
+        mesh = make_local_mesh(model=1)
+        w0 = torch.randn(4096, 8192, device=dev).to(torch.bfloat16)
+        x0 = torch.randn(2, 8, 4096, device=dev).to(torch.bfloat16)
+        w = distribute_tensor(w0, mesh, [Replicate(), Shard(1)])
+        x = distribute_tensor(x0, mesh, [Shard(0), Replicate()])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = layers.einsum_f32("bsd,df->bsf", x, w)
+        torch.cuda.synchronize()
+        assert y.dtype == torch.float32
+        assert torch.cuda.max_memory_allocated() - base < w0.numel() * 2
+        assert torch.equal(y.full_tensor(),
+                           layers.einsum_f32("bsd,df->bsf", x0, w0))
+        got, want = [], []
+        for a, b, out in ((x, w, got), (x0, w0, want)):
+            a = a.detach().requires_grad_(True)
+            b = b.detach().requires_grad_(True)
+            yy = layers.einsum_f32("bsd,df->bsf", a, b)
+            (yy.square().sum() * 0.5).backward()
+            out += [a.grad, b.grad]
+        assert all(torch.equal(g.full_tensor(), h)
+                   for g, h in zip(got, want))
+    finally:
+        dist.destroy_process_group()

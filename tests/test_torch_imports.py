@@ -133,3 +133,43 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     qkv = torch.zeros((1, 8, 2, 16), device="meta")
     with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
         flash_attention(qkv, qkv, qkv)
+
+
+DISTRIBUTION_MODULES = ("sharding/__init__.py", "sharding/rules.py",
+                        "sharding/context.py", "sharding/resharding.py",
+                        "optim/compression.py", "launch/mesh.py",
+                        "launch/dryrun.py", "configs/shapes.py")
+
+
+@pytest.mark.parametrize("rel", DISTRIBUTION_MODULES)
+def test_distribution_modules_exist_and_stand_alone(rel):
+    """Each distribution module has its counterpart in the port, importing
+    neither jax nor repro."""
+    path = PORT / rel
+    assert path.is_file() and (ROOT / "src" / "repro" / rel).is_file()
+    assert _bad_imports(path) == []
+
+
+def test_distribution_import_pulls_in_neither_jax_nor_repro():
+    code = ("import sys, repro_torch.sharding.rules\n"
+            "import repro_torch.sharding.context\n"
+            "import repro_torch.sharding.resharding\n"
+            "import repro_torch.optim.compression\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+            "import repro_torch.configs.shapes\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
+            "       or m.startswith(('jax.', 'repro.'))]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)
+
+
+def test_xla_flags_has_no_counterpart():
+    """``configs/xla_flags.py`` configures XLA only: the port has no such
+    module and says so."""
+    assert (ROOT / "src" / "repro" / "configs" / "xla_flags.py").is_file()
+    assert not (PORT / "configs" / "xla_flags.py").exists()
+    assert "xla_flags.py" in (PORT / "configs" / "__init__.py").read_text()
