@@ -149,6 +149,24 @@ Phase 8  Distribution on the card: a one-rank NCCL group over a
          NCCL group, whose int32 sum equals the local int8 gradient.
          Launches of the comparisons with plain tensors (the plain step
          and the plain commit) are not counted as the path's.
+Phase 9  Cell J, decode on DTensor caches: Phase 8's model (SmolLM-360M,
+         full width, first 8 of 32 layers, bf16) as DTensors under
+         ShardingRules and its caches under ``shard_caches`` (K/V
+         sharded on the sequence over "model") on a one-rank NCCL (1, 1)
+         mesh, batch 8, 1,024-slot caches (83,886,080 bytes of K + V), a
+         64-token prompt, 16 KiB chunks, a KishuSession over the group.
+         The sharded prefill (flash on the local shards, all 8 launches
+         on tc) gives the prompt's logits, the sharded eager decode step
+         fills the prompt teacher-forced within the bf16 logit bound;
+         the prefix commit equals the plain commit of the same cache
+         values (chunk keys, hashes, bytes); flavors 1, 2, 1 of 32 tokens
+         are each followed by a rollback to the prefix, timed and
+         verified exact by block_diff on the local shards; the repeated
+         flavor gives the same tokens and caches.  The sharded step, teacher-
+         forced from the prefix, is held against the plain graphed step
+         on plain copies of the caches (max difference printed); one
+         sharded step under CommDebugMode must issue three all-reduces in
+         each attention layer.  The phase must end within 120 s.
 
 Output: per-phase lines, one JSON line of kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  The full record goes to
@@ -158,8 +176,8 @@ repository, it exits non-zero before printing any result.
 
     python3 chip_smoke.py --only phase2,phase6 [--root DIR]
 
-runs only the named phases (2, 6 and the serving phases 5, 7, 7b, 7c and
-7d, each on a store of its own), taken from the ``chip_smoke.py`` and
+runs only the named phases (2, 6 and the serving phases 5, 7, 7b, 7c,
+7d and 9, each on a store of its own), taken from the ``chip_smoke.py`` and
 ``src/`` under ``DIR`` (default: this tree), and prints one line each of
 wall times, decode ms a step, the graphed step's busy share and peak
 memory.  Two trees are compared by calling it in turns with each tree's
@@ -248,7 +266,7 @@ ENC_PATH_KERNELS = SERVE_PATH_KERNELS
 # the phases whose launch counts the kernels line reports, each read from
 # its own run (counts set to 0 just before it)
 PATHS = ("phase2", "phase4", "phase4b", "phase5", "phase6", "phase7",
-         "phase7b", "phase7c", "phase7d", "phase8")
+         "phase7b", "phase7c", "phase7d", "phase8", "phase9")
 # Phase 8: SmolLM-360M at full width, its first 8 of 32 layers, as
 # DTensors on a one-rank NCCL mesh; the kernels its Kishu path launches on
 # DTensor co-variables
@@ -261,9 +279,22 @@ ELASTIC_WAYS = 8
 # share of the plain change's norm, leaf by leaf (a skipped update or a
 # wrong gradient gives ~1)
 DELTA_TOL = 0.1
+# Phase 9 (Cell J): decode on DTensor caches — SmolLM-360M at full width,
+# Phase 8's cut to its first 8 of 32 layers, bf16, params under
+# ShardingRules and caches under shard_caches on a one-rank NCCL mesh;
+# batch 8 with 1,024-slot caches (K + V: 83,886,080 bytes), a 64-token
+# prompt (the sharded step is eager and host-bound: the prompt is sized so
+# that the phase stays under PHASE9_LIMIT_S), 32 generated tokens a
+# flavor, Cell C's 16 KiB chunks
+SHARD_LAYERS = 8
+SHARD_BATCH, SHARD_SLOTS, SHARD_PROMPT, SHARD_GEN = 8, 1024, 64, 32
+SHARD_COMPARE = 16        # teacher-forced steps held against the plain step
+SHARD_PATH_KERNELS = ("flash_attention", "chunk_hash", "delta_pack",
+                      "patch_scatter", "block_diff")
+PHASE9_LIMIT_S = 120.0
 # the phases ``--only`` runs alone: each takes (torch, dev, workdir)
 TIMED_PHASES = ("phase2", "phase6", "phase5", "phase7", "phase7b",
-                "phase7c", "phase7d")
+                "phase7c", "phase7d", "phase9")
 
 
 def fail(msg: str) -> None:
@@ -739,8 +770,9 @@ def flash_cases(torch) -> list:
     Phase 7c's MLA prefill (deepseek-v3: 128 heads, q and k of 192, v of
     128 zero-padded to 192, as ``layers._mla_attend`` hands it over),
     Phase 7d's encoder (whisper: S 1500, not a multiple of the tile) and
-    decoder prefill, and stablelm-12b's head dim 160.  ``v_hd`` < hd
-    zeroes v's last hd - v_hd columns."""
+    decoder prefill, stablelm-12b's head dim 160, and Phase 9's sharded
+    prefill (S 64: one partial tile).  ``v_hd`` < hd zeroes v's last
+    hd - v_hd columns."""
     bf, f32 = torch.bfloat16, torch.float32
     b, s, hq, hkv = SERVE_BATCH, SERVE_PROMPT, N_HEADS, N_KV
     return [("main", b, s, hq, hkv, HEAD_DIM, bf, True, HEAD_DIM),
@@ -758,12 +790,14 @@ def flash_cases(torch) -> list:
              64),
             ("whisper_decoder_prefill", ENC_BATCH, ENC_PROMPT, 20, 20, 64,
              bf, True, 64),
-            ("stablelm_hd_160", 8, 512, 32, 8, 160, bf, True, 160)]
+            ("stablelm_hd_160", 8, 512, 32, 8, 160, bf, True, 160),
+            ("phase9_sharded_prefill", SHARD_BATCH, SHARD_PROMPT, hq, hkv,
+             HEAD_DIM, bf, True, HEAD_DIM)]
 
 
 def phase1_flash(torch, dev) -> dict:
-    """The flash kernel against its plain version at Phase 5's prefill
-    shape, Phase 7b's and six more, on each route that takes the inputs (bf16: the
+    """The flash kernel against its plain version at each shape of
+    :func:`flash_cases`, on each route that takes the inputs (bf16: the
     tensor-core route "tc" and the FMA route; float32: FMA only); device
     and host-loop times of each route and of SDPA, the plain version's
     time and the bound of each."""
@@ -2576,6 +2610,365 @@ def phase8(torch, dev, workdir: Path) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: Cell J, decode on DTensor caches (one NCCL rank)
+# ---------------------------------------------------------------------------
+
+def phase9(torch, dev, workdir: Path) -> dict:
+    """Cell J: serving on DTensor caches.  SmolLM-360M at full width, its
+    first SHARD_LAYERS layers, bf16; params under ShardingRules and
+    caches under ``shard_caches`` on a (1, 1) ("data", "model") mesh of a
+    one-rank NCCL group; a KishuSession over the group.  Cell C's flow:
+    the sharded prefill (flash on the local shards) gives the prompt's
+    logits; the sharded step fills the prompt teacher-forced and its
+    logits are held against the prefill's within :func:`logit_bound_of`;
+    the prefix commit equals the plain commit of the same cache values
+    (chunk keys, hashes, bytes); flavors 1, 2, 1 each generate from the
+    prefix and roll back to it, timed and verified exact by block_diff on
+    the local shards.  Then the sharded step, teacher-forced from the prefix,
+    is held against the plain graphed step on plain copies of the same
+    caches; one sharded step runs under ``CommDebugMode`` and must issue
+    its three reductions in every attention layer.  The launches of the
+    plain comparisons are not counted.  The group is destroyed on the way
+    out."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.core import KishuSession, open_store
+    from repro_torch.core.delta import exact_dirty_indices
+    from repro_torch.core.graph import key_str
+    from repro_torch.core.serialize import global_image
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import init_file_group, make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.config import get_config
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.sharding.rules import (ShardingRules, distribute_tree,
+                                            shard_caches)
+    from repro_torch.train import step as step_lib
+
+    rec: dict = {}
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    init_file_group("nccl", 0, 1, str(workdir / "pg_store"))
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "phase9: no one-rank NCCL group")
+        mesh = make_local_mesh(model=1)
+        check(mesh.device_type == "cuda", f"phase9: mesh on {mesh}")
+        cfg = get_config("smollm-360m").replace(n_layers=SHARD_LAYERS)
+        params = lm.init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(0))
+        rules = ShardingRules(cfg, mesh)
+        dparams = distribute_tree(params, mesh,
+                                  rules.param_shardings(params))
+        b, plen, gen, vocab = (SHARD_BATCH, SHARD_PROMPT, SHARD_GEN,
+                               cfg.vocab_size)
+        rec.update(arch=cfg.name, layers=SHARD_LAYERS, batch=b,
+                   slots=SHARD_SLOTS, prompt=plen, gen=gen,
+                   chunk_bytes=SERVE_CHUNK)
+        logit_bound = logit_bound_of(torch, cfg, params)
+        rec["logit_bound"] = logit_bound
+        prompts = torch.randint(0, vocab, (b, plen), dtype=torch.int32,
+                                device=dev, generator=torch.Generator(
+                                    device=dev).manual_seed(1))
+        tok_pl = list(rules.batch_spec({"t": prompts})["t"])
+
+        def dtok(t):
+            return distribute_tensor(t.contiguous(), mesh, tok_pl)
+
+        def new_caches():
+            return shard_caches(lm.init_caches(cfg, b, SHARD_SLOTS,
+                                               device=dev), rules, b)
+
+        def sharded_logits(caches, tok, index):
+            with torch.no_grad(), step_lib.spmd(dparams):
+                lg, _ = lm.decode_step(cfg, dparams, caches,
+                                       {"tokens": dtok(tok),
+                                        "index": index})
+            return lg.full_tensor()
+
+        serve_step = step_lib.make_decode_step(cfg)
+
+        def sharded_step(_params, caches, bt):
+            nxt, caches = serve_step(dparams, caches,
+                                     {**bt, "tokens": dtok(bt["tokens"])})
+            return nxt.full_tensor(), caches
+
+        prefill_step = step_lib.make_prefill_step(cfg)
+        held: dict = {}
+
+        class uncounted:
+            def __enter__(self):
+                self.before = _lib.launches()
+
+            def __exit__(self, *exc):
+                for k, v in _lib.launches().items():
+                    held[k] = held.get(k, 0) + v - self.before.get(k, 0)
+
+        def prefill(ns):
+            t0 = time.perf_counter()
+            logits = prefill_step(dparams, {"tokens": dtok(prompts)})
+            logits = logits.full_tensor()
+            torch.cuda.synchronize()
+            rec["prefill_step_s"] = time.perf_counter() - t0
+            rec["prefill_step_routes"] = \
+                _lib.route_launches()["flash_attention"]
+            check(tuple(logits.shape) == (b, plen, cfg.padded_vocab)
+                  and bool(torch.isfinite(logits).all()),
+                  f"phase9 prefill logits {tuple(logits.shape)}")
+            caches = new_caches()
+            t0 = time.perf_counter()
+            err = torch.zeros((), device=dev)
+            tok = prompts[:, :1]
+            for t in range(plen):
+                lg = sharded_logits(caches, tok, t)
+                err = torch.maximum(err, (lg[:, 0] - logits[:, t]).abs()
+                                    .max())
+                nxt = lg[..., :vocab].argmax(-1).to(torch.int32)
+                tok = prompts[:, t + 1:t + 2] if t + 1 < plen else nxt
+            torch.cuda.synchronize()
+            rec["decode_prefill_s"] = time.perf_counter() - t0
+            rec["prefill_decode_max_abs_err"] = float(err)
+            ns.set_tree("caches", caches)
+            ns["last_tok"] = tok
+            ns["pos"] = plen
+
+        def generate(ns, n, flavor):
+            caches = ns.get_tree("caches")
+            tok, pos, outs = ns["last_tok"], ns["pos"], []
+            for t in range(n):
+                tok, caches = sharded_step(None, caches,
+                                           {"tokens": (tok + flavor) % vocab,
+                                            "index": pos + t})
+                outs.append(tok)
+            ns["last_tok"] = tok
+            ns["pos"] = pos + n
+            ns["generated"] = torch.cat(outs, dim=1)
+            torch.cuda.synchronize()
+
+        def compare(ns):
+            # the sharded step against the plain graphed step, teacher-
+            # forced from the same cache values; one step's collectives
+            caches = ns.get_tree("caches")
+            with uncounted():
+                plain = tree_map(lambda x: global_image(x).clone(), caches)
+            toks = torch.randint(0, vocab, (b, SHARD_COMPARE),
+                                 dtype=torch.int32, device=dev,
+                                 generator=torch.Generator(device=dev)
+                                 .manual_seed(9))
+            graphed = step_lib.GraphedDecodeStep(cfg)
+            pos, err, t0 = ns["pos"], 0.0, time.perf_counter()
+            for t in range(SHARD_COMPARE):
+                tok = toks[:, t:t + 1]
+                if t == 0:
+                    comm = CommDebugMode()
+                    with comm:
+                        got = sharded_logits(caches, tok, pos + t)
+                    rec["step_all_reduce"] = sum(
+                        v for k, v in comm.get_comm_counts().items()
+                        if str(k).endswith("all_reduce"))
+                else:
+                    got = sharded_logits(caches, tok, pos + t)
+                with uncounted():
+                    want, _, _ = graphed.with_logits(
+                        params, plain, {"tokens": tok, "index": pos + t})
+                err = max(err, float((got - want).abs().max()))
+            torch.cuda.synchronize()
+            rec["compare_s"] = time.perf_counter() - t0
+            rec["sharded_vs_plain_max_abs_err"] = err
+            rec["plain_graph_captures"] = graphed.captures
+            ns["pos"] = pos + SHARD_COMPARE
+
+        sess = KishuSession(open_store(f"dir://{workdir}/shard_cas"),
+                            chunk_bytes=SERVE_CHUNK, device=dev,
+                            group=dist.group.WORLD)
+        for name, fn in (("prefill", prefill), ("generate", generate),
+                         ("compare", compare)):
+            sess.register(name, fn)
+        sess.init_state({})
+
+        def cache_names():
+            return sorted(n for n in sess.ns.names()
+                          if n.startswith("caches/"))
+
+        def local_snapshot():
+            return {n: (sess.ns[n].to_local() if isinstance(
+                sess.ns[n], DTensor) else sess.ns[n]).clone()
+                for n in sess.ns.names()
+                if isinstance(sess.ns[n], torch.Tensor)}
+
+        def verify_local(snap, label):
+            t0 = time.perf_counter()
+            names = sorted(n for n in sess.ns.names()
+                           if isinstance(sess.ns[n], torch.Tensor))
+            check(names == sorted(snap), f"phase9 {label}: names differ")
+            bad = {}
+            for n in names:
+                x = sess.ns[n]
+                x = x.to_local() if isinstance(x, DTensor) else x
+                d = exact_dirty_indices(x, snap[n], SERVE_CHUNK)
+                if d:
+                    bad[n] = d[:4]
+            check(not bad, f"phase9 {label}: not bit-identical: {bad}")
+            return time.perf_counter() - t0
+
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        c_prefix = sess.run("prefill")
+        torch.cuda.synchronize()
+        rec["prefill_cell_s"] = time.perf_counter() - t0
+        check(rec["prefill_step_routes"] == {"tc": SHARD_LAYERS, "fma": 0},
+              f"phase9 prefill flash routes {rec['prefill_step_routes']}, "
+              f"want all {SHARD_LAYERS} on tc")
+        names = cache_names()
+        check(names and all(isinstance(sess.ns[n], DTensor)
+                            for n in names), "phase9: caches not DTensors")
+        rec["cache_bytes"] = sum(sess.ns[n].numel()
+                                 * sess.ns[n].element_size() for n in names)
+        rec["cache_placements"] = {n.split("/")[-1]: str(
+            sess.ns[n].placements) for n in names}
+        check(rec["prefill_decode_max_abs_err"] <= logit_bound,
+              f"phase9: prefill and sharded decode logits differ by "
+              f"{rec['prefill_decode_max_abs_err']} > {logit_bound}")
+
+        # the prefix commit against the plain commit of the same values
+        t0 = time.perf_counter()
+        ref = KishuSession(open_store(f"dir://{workdir}/plain_cas"),
+                           chunk_bytes=SERVE_CHUNK, device=dev)
+        tensors = {n: global_image(sess.ns[n]).clone() for n in names}
+        with uncounted():
+            rc = ref.init_state(tensors)
+        bad, n_keys, n_bytes = [], 0, 0
+        for n in names:
+            a = sess.graph.manifest_of(
+                (n,), sess.graph.nodes[c_prefix].state_index[key_str((n,))])
+            pm = ref.graph.manifest_of((n,), rc)
+            ka = [c["key"] for c in a["base"]["chunks"]]
+            kb = [c["key"] for c in pm["base"]["chunks"]]
+            if ka != kb or a["base"]["det_hashes"] != \
+                    pm["base"]["det_hashes"]:
+                bad.append(n)
+                continue
+            got_a, got_b = sess.store.get_chunks(ka), ref.store.get_chunks(kb)
+            if any(got_a[k] != got_b[k] for k in ka):
+                bad.append(n)
+            n_keys += len(ka)
+            n_bytes += sum(len(got_a[k]) for k in ka)
+        ref.close()
+        del tensors
+        rec["same_as_plain"] = {"chunks": n_keys, "bytes": n_bytes,
+                                "differ": bad, "s": time.perf_counter() - t0}
+        check(not bad and n_keys > 0, f"phase9: the prefix commit differs "
+              f"from the plain commit of the same values: {bad[:4]}")
+
+        snap0 = local_snapshot()
+        snap1, tokens, rollbacks, gens = None, {}, [], []
+
+        def rollback():
+            t0 = time.perf_counter()
+            st = sess.checkout(c_prefix)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            v = verify_local(snap0, f"rollback {len(rollbacks)}")
+            rollbacks.append({"s": dt, "verify_s": v,
+                              "covs_patched": st.covs_patched,
+                              "covs_loaded": st.covs_loaded,
+                              "chunks_patched": st.chunks_patched,
+                              "bytes_loaded": st.bytes_loaded})
+            check(all(isinstance(sess.ns[n], DTensor) for n in names),
+                  f"phase9 rollback {len(rollbacks)}: DTensors lost")
+
+        # flavors 1, 2, 1, each generation followed by a rollback to the
+        # prefix; the last rollback leads to the comparison
+        for flavor in (1, 2, 1):
+            t0 = time.perf_counter()
+            sess.run("generate", n=gen, flavor=flavor)
+            torch.cuda.synchronize()
+            gens.append({"flavor": flavor, "s": time.perf_counter() - t0,
+                         "exec_s": sess.last_run.exec_s,
+                         "ms_per_step": 1e3 * sess.last_run.exec_s / gen})
+            got = sess.ns["generated"]
+            check(tuple(got.shape) == (b, gen) and int(got.max()) < vocab
+                  and int(got.min()) >= 0,
+                  f"phase9 generated {tuple(got.shape)}")
+            if flavor in tokens:
+                check(torch.equal(got, tokens[flavor]),
+                      f"phase9: flavor {flavor} regenerated other tokens")
+                rec["verify_repeat_s"] = verify_local(snap1,
+                                                      "repeated flavor")
+            else:
+                tokens[flavor] = got.clone()
+                if snap1 is None:
+                    snap1 = local_snapshot()
+            rollback()
+        check(not torch.equal(tokens[1], tokens[2]),
+              "phase9: flavors 1 and 2 generated the same tokens")
+        rec["rollbacks"], rec["generates"] = rollbacks, gens
+        del snap1
+
+        # the sharded step against the plain graphed step, from the prefix
+        sess.run("compare")
+        check(rec["sharded_vs_plain_max_abs_err"] <= logit_bound,
+              f"phase9: the sharded step differs from the plain graphed "
+              f"step by {rec['sharded_vs_plain_max_abs_err']} > "
+              f"{logit_bound}")
+        check(rec["step_all_reduce"] == 3 * SHARD_LAYERS,
+              f"phase9: {rec['step_all_reduce']} all-reduces in a sharded "
+              f"step, want 3 in each of {SHARD_LAYERS} attention layers")
+        sess.close()
+        rec["launches"] = {k: v - held.get(k, 0)
+                           for k, v in _lib.launches().items()}
+        rec["comparison_launches"] = held
+        missing = [k for k in SHARD_PATH_KERNELS if rec["launches"][k] <= 0]
+        check(not missing, f"phase9: kernels never launched on the sharded "
+                           f"path: {missing}")
+        # the card's busy share in a sharded (eager, host-bound) step
+        rec["decode_profile"] = profile_decode(torch, sharded_step, None,
+                                               new_caches(), prompts[:, :1],
+                                               5)
+    finally:
+        dist.destroy_process_group()
+    rec["peak_allocated"] = torch.cuda.max_memory_allocated()
+    rec["peak_reserved"] = torch.cuda.max_memory_reserved()
+    rec["s"] = time.perf_counter() - t_all
+    prof = rec["decode_profile"]
+    print(f"phase9 {cfg.name}, first {SHARD_LAYERS} of 32 layers, bf16 on a "
+          f"(1, 1) NCCL mesh: caches {rec['cache_bytes']} bytes, "
+          f"placements {rec['cache_placements']}", flush=True)
+    print(f"phase9 sharded prefill {rec['prefill_step_s']:.3f} s (flash "
+          f"{rec['prefill_step_routes']}); sharded decode over the "
+          f"{plen}-token prompt {rec['decode_prefill_s']:.3f} s, logits "
+          f"max abs diff {rec['prefill_decode_max_abs_err']:.4f} (bound "
+          f"{logit_bound:.4f})", flush=True)
+    print(f"phase9 prefix commit = plain commit: "
+          f"{rec['same_as_plain']['chunks']} chunk keys, "
+          f"{rec['same_as_plain']['bytes']} bytes", flush=True)
+    for i, (g, r) in enumerate(zip(rec["generates"], rec["rollbacks"])):
+        print(f"phase9 generate flavor {g['flavor']}: {g['ms_per_step']:.2f}"
+              f" ms a step; rollback {i} to the prefix: {r['s']:.3f} s, "
+              f"exact on the local shards (block_diff {r['verify_s']:.3f} "
+              f"s), {r['covs_patched']} patched ({r['chunks_patched']} "
+              f"chunks), {r['covs_loaded']} loaded", flush=True)
+    print(f"phase9 sharded step against the plain graphed step over "
+          f"{SHARD_COMPARE} steps: max abs diff "
+          f"{rec['sharded_vs_plain_max_abs_err']:.5f} (bound "
+          f"{logit_bound:.4f}); {rec['step_all_reduce']} all-reduces in one "
+          f"step", flush=True)
+    print(f"phase9 decode profile, sharded eager: {prof['wall_ms']:.3f} ms a "
+          f"step on the host clock, {prof['kernel_ms']:.3f} ms of kernels "
+          f"({prof['kernels']:.0f} launches a step), busy share "
+          f"{prof['busy_share']:.3f}; largest: {prof['top'][:3]}",
+          flush=True)
+    print(f"phase9 launches {rec['launches']} (comparisons with plain "
+          f"tensors, not counted: {rec['comparison_launches']}), "
+          f"{rec['s']:.1f} s, peak allocated {rec['peak_allocated']} "
+          f"reserved {rec['peak_reserved']}", flush=True)
+    check(rec["s"] < PHASE9_LIMIT_S,
+          f"phase9 took {rec['s']:.1f} s, over {PHASE9_LIMIT_S:.0f} s")
+    return rec
+
+
 def moe_capacity(cfg, n_tokens: int) -> int:
     from repro_torch.models.moe import capacity
     return capacity(n_tokens, cfg.moe)
@@ -2725,7 +3118,7 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     for phase, fn in (("phase7", phase7), ("phase7b", phase7b),
                       ("phase7c", phase7c), ("phase7d", phase7d),
-                      ("phase8", phase8)):
+                      ("phase8", phase8), ("phase9", phase9)):
         free_card(torch)
         workdir = Path(tempfile.mkdtemp(prefix=f"kishu_smoke_{phase}_"))
         try:

@@ -17,8 +17,13 @@ For each cell the dry run:
      (:class:`CollectiveCounter`, a ``CommDebugMode``) into a JSON
      artifact under ``build/dryrun/``.
 
-Decode cells are recorded as skipped: decode on DTensor caches (written
-in place at the cache index) is not ported yet.
+Decode cells run as the JAX package builds them: the caches are meta
+DTensors placed by ``ShardingRules.cache_spec`` (K/V and MLA's
+compressed cache sharded on the sequence over ``model``, SSM state on
+its heads, ``enc_out`` on the batch), the batch by ``batch_spec``, and
+each rank writes and attends over its own sequence shard
+(``models.layers.sharded_decode_write``, ``SeqShard.attention``), so no
+collective moves a cache.
 
 Torch runs no compiler here, so there is no HLO to parse: the collectives
 are counted as DTensor issues them.  XLA's cost analysis counts a loop
@@ -56,12 +61,11 @@ from repro_torch.launch.mesh import (PRODUCTION_SHAPES, init_fake_group,
                                      make_production_mesh)
 from repro_torch.models.config import get_config
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.sharding.resharding import _local_box
+from repro_torch.sharding.resharding import local_box
 from repro_torch.sharding.rules import ShardingRules
 from repro_torch.train import step as step_lib
 
 ART_DIR = str(Path(__file__).resolve().parents[3] / "build" / "dryrun")
-DECODE_NOT_PORTED = "decode on DTensor caches is not ported yet"
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "broadcast")
@@ -91,6 +95,7 @@ class CollectiveCounter(CommDebugMode):
         super().__init__()
         self.bytes: Dict[str, int] = defaultdict(int)
         self.counts: Dict[str, int] = defaultdict(int)
+        self.results: list = []          # (kind, result bytes), in order
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         before = sum(self.comm_counts.values())
@@ -101,6 +106,7 @@ class CollectiveCounter(CommDebugMode):
                              func._overloadpacket.__name__)
             self.bytes[kind] += _nbytes(out)
             self.counts[kind] += 1
+            self.results.append((kind, _nbytes(out)))
         return out
 
 
@@ -115,8 +121,8 @@ def collective_bytes(counter: CollectiveCounter) -> Dict[str, Any]:
 def meta_dtensor(x: torch.Tensor, mesh, placements) -> DTensor:
     """A DTensor over ``mesh`` whose local shard is a ``meta`` tensor of
     this rank's shape: no storage, no communication."""
-    local, _ = _local_box(tuple(x.shape), tuple(mesh.shape),
-                          mesh.get_coordinate(), placements)
+    local, _ = local_box(tuple(x.shape), tuple(mesh.shape),
+                         mesh.get_coordinate(), placements)
     return DTensor.from_local(
         torch.empty(local, dtype=x.dtype, device="meta"), mesh,
         list(placements), run_check=False, shape=x.shape, stride=x.stride())
@@ -210,11 +216,16 @@ def build_cell(arch: str, shape: str, mesh, *, cfg_override=None,
     params = abstract_params(cfg)
     pshard = rules.param_shardings(params)
     dparams = _dtree(params, mesh, pshard)
-    if spec["kind"] != "prefill":
-        raise ValueError(f"{shape}: {DECODE_NOT_PORTED}")
-    fn = step_lib.make_prefill_step(cfg, hidden_sharding=hidden)
-    return {"fn": fn, "args": (dparams, batch), "cfg": cfg,
-            "rules": rules, "arg_shards": (pshard, bshard)}
+    if spec["kind"] == "prefill":
+        fn = step_lib.make_prefill_step(cfg, hidden_sharding=hidden)
+        return {"fn": fn, "args": (dparams, batch), "cfg": cfg,
+                "rules": rules, "arg_shards": (pshard, bshard)}
+    # decode: caches placed by cache_spec, as the JAX package jits it
+    cshard = rules.cache_spec(spec["caches"], s.global_batch)
+    caches = _dtree(spec["caches"], mesh, cshard)
+    fn = step_lib.make_decode_step(cfg)
+    return {"fn": fn, "args": (dparams, caches, batch), "cfg": cfg,
+            "rules": rules, "arg_shards": (pshard, cshard, bshard)}
 
 
 def ensure_fake_group(world_size: int) -> None:
@@ -235,7 +246,8 @@ def _measure(cell) -> Dict[str, Any]:
     with shctx.moe_weight_gather(cell["rules"]), counter, flops:
         cell["fn"](*cell["args"])
     return {"flops": float(flops.get_total_flops()),
-            "collectives": collective_bytes(counter)}
+            "collectives": collective_bytes(counter),
+            "results": list(counter.results)}
 
 
 def run_cell(arch: str, shape: str, mesh_kind: str, *,
@@ -252,8 +264,6 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *,
             return json.load(f)
     cfg = get_config(arch)
     ok, why = shape_applicable(cfg, shape)
-    if ok and SHAPES[shape].kind == "decode":
-        ok, why = False, DECODE_NOT_PORTED
     rec: Dict[str, Any] = {"arch": arch, "shape": shape, "mesh": mesh_kind,
                            "variant": variant, "rules_opts": rules_opts or {}}
     if ok:

@@ -23,6 +23,12 @@ Conventions
   CPU has no ``mm.dtype``), float32 or mixed operands and the
   three-operand SSD equations (``mamba.py``; activations only, no
   weight) — upcasts the operands and runs ``torch.einsum`` in float32.
+- decode writes each new cache row at ``min(index, S-1)``, as the JAX
+  package's ``dynamic_update_slice`` clamps it; on DTensor caches sharded
+  on the sequence (``ShardingRules.cache_spec``) each rank writes its own
+  slots and attends over them (:func:`split_attention`: a global max, a
+  global sum and the summed P.V, three small all-reduces a layer), so no
+  cache moves.
 - initialisers draw from a seeded ``torch.Generator`` on the target device.
   ``lead`` prepends the stacked-unit axis: the JAX package vmaps one unit's
   init over ``n_units`` keys, so every per-layer leaf has a leading
@@ -35,6 +41,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -493,6 +500,176 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# decode writes and decode on sharded caches
+# ---------------------------------------------------------------------------
+
+def decode_write(bufs: Sequence[torch.Tensor], rows: Sequence[torch.Tensor],
+                 index: torch.Tensor) -> None:
+    """Write each new row [B,1,...] into its plain cache [B,S,...] in
+    place, cast to the cache dtype, at slot ``min(index, S-1)``: the JAX
+    package's ``dynamic_update_slice``, which clamps its start so that
+    the update fits.  The clamp runs on the device (one launch for all
+    ``bufs``), so nothing is read back and a CUDA graph can capture it."""
+    slot = index.reshape(1).long().clamp(max=bufs[0].shape[1] - 1)
+    for buf, row in zip(bufs, rows):
+        buf.index_copy_(1, slot, row.to(buf.dtype))
+
+
+def split_attention(q: torch.Tensor, ks: Sequence[torch.Tensor],
+                    vs: Sequence[torch.Tensor], los: Sequence[int], *,
+                    q_offset: torch.Tensor, reduce_max, reduce_sum,
+                    softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`attention_core` (``causal=True`` at ``q_offset``) over a
+    cache cut along the sequence into pieces ``ks[i]``, ``vs[i]``
+    [B,S_i,Hkv,hd] whose first slots are the global positions ``los[i]``.
+
+    ``reduce_max`` and ``reduce_sum`` take a list with one tensor per
+    piece of ``ks`` and return their elementwise max and sum over every
+    piece of the whole cache: on a sharded cache this rank's one piece
+    and an all-reduce over the mesh dims that shard the sequence; in a
+    test, the pieces of one plain cache.  The softmax is the reference's:
+    logits masked with the finite -1e30 at key positions ``los[i] +
+    arange(S_i)``, ``p = exp(s - M) / L`` with the global max ``M`` and
+    sum ``L``, cast to v's dtype *before* P.V; the float32 partial
+    products are summed by ``reduce_sum`` and cast to q's dtype.  Three
+    reductions in all, of [B,H,Sq,1] twice and [B,Sq,H,hd_v] once."""
+    sq, hq, hd = q.shape[1], q.shape[2], q.shape[3]
+    n_rep = hq // ks[0].shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / np.sqrt(hd)
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    logits = []
+    for k, lo in zip(ks, los):
+        s = einsum_f32("bqhd,bkhd->bhqk", q, _repeat_kv(k, n_rep)) * scale
+        kpos = torch.arange(lo, lo + k.shape[1], device=q.device)[None, :]
+        logits.append(s.masked_fill(~(qpos >= kpos)[None, None], -1e30))
+    m = reduce_max([s.amax(dim=-1, keepdim=True) for s in logits])
+    e = [torch.exp(s - m) for s in logits]
+    total = reduce_sum([x.sum(dim=-1, keepdim=True) for x in e])
+    parts = [einsum_f32("bhqk,bkhd->bqhd", (x / total).to(v.dtype),
+                        _repeat_kv(v, n_rep)) for x, v in zip(e, vs)]
+    return reduce_sum(parts).to(q.dtype)
+
+
+class SeqShard(NamedTuple):
+    """This rank's shard of a decode cache leaf [B,S,...] sharded on the
+    sequence (and possibly the batch): its mesh, the placements of its
+    batch rows with every other dim whole (``rows``), its first global
+    slot ``lo`` and its ``n`` slots (DTensor's local box), the mesh dims
+    that shard the sequence (``seq_dims``: the reductions run over them,
+    a dim of one rank included) and the global batch."""
+    mesh: object
+    rows: tuple
+    lo: int
+    n: int
+    seq_dims: Tuple[int, ...]
+    batch: int
+
+    def reduce(self, op: str):
+        """A :func:`split_attention` reduction: this rank's one piece
+        all-reduced with ``op`` over ``seq_dims`` (functional
+        collectives, which ``CommDebugMode`` counts)."""
+        def reduce(xs):
+            (x,) = xs
+            for i in self.seq_dims:
+                x = funcol.all_reduce(x, op, (self.mesh, i))
+            return x.wait() if isinstance(x, funcol.AsyncCollectiveTensor) \
+                else x
+        return reduce
+
+    def attention(self, q, k, v, *, causal: bool, q_offset,
+                  softmax_scale: Optional[float] = None) -> torch.Tensor:
+        """:func:`attention_core`'s signature (causal decode only) over
+        this rank's local K/V shard: :func:`split_attention`."""
+        if not causal:
+            raise ValueError("the sharded decode attention is causal")
+        return split_attention(q, [k], [v], [self.lo], q_offset=q_offset,
+                               reduce_max=self.reduce("max"),
+                               reduce_sum=self.reduce("sum"),
+                               softmax_scale=softmax_scale)
+
+    def wrap(self, out: torch.Tensor) -> DTensor:
+        """This rank's rows of a [B,...] result as a DTensor on the
+        cache's batch placements."""
+        out = out.contiguous()
+        shape = (self.batch, *out.shape[1:])
+        return DTensor.from_local(out, self.mesh, list(self.rows),
+                                  run_check=False, shape=shape,
+                                  stride=torch.empty(shape, device="meta")
+                                  .stride())
+
+
+def shard_box(x: DTensor) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(local shape, global offset) of this rank's shard of ``x``."""
+    from repro_torch.sharding.resharding import local_box
+    mesh = x.device_mesh
+    return local_box(tuple(x.shape), tuple(mesh.shape),
+                     mesh.get_coordinate(), x.placements)
+
+
+def seq_shard(buf: DTensor) -> SeqShard:
+    """The :class:`SeqShard` of a DTensor cache leaf; a leaf sharded on
+    any dim but the batch and the sequence raises."""
+    mesh = buf.device_mesh
+    bad = [p for p in buf.placements
+           if not p.is_replicate() and not (isinstance(p, Shard)
+                                            and p.dim in (0, 1))]
+    if bad:
+        raise ValueError(f"decode cache placements {buf.placements}: only "
+                         f"the batch and the sequence may be sharded")
+    local, offset = shard_box(buf)
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in buf.placements)
+    seq = tuple(i for i, p in enumerate(buf.placements)
+                if isinstance(p, Shard) and p.dim == 1)
+    return SeqShard(mesh, rows, int(offset[1]), int(local[1]), seq,
+                    int(buf.shape[0]))
+
+
+def local_rows(x: torch.Tensor, sh: SeqShard) -> torch.Tensor:
+    """This rank's batch rows of ``x`` [B,...] with every other dim whole
+    (a plain ``x`` acts as replicated), as a plain tensor."""
+    mesh = sh.mesh
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return x.redistribute(mesh, sh.rows).to_local()
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole on every rank (a plain tensor); a plain
+    tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def sharded_decode_write(bufs: Sequence[DTensor], rows, index
+                         ) -> Tuple[SeqShard, List[torch.Tensor],
+                                    torch.Tensor]:
+    """:func:`decode_write` for DTensor caches ``bufs`` [B,S,...] sharded
+    alike on the sequence (and the batch).  Each rank owns slots
+    [lo, lo + n) and writes, at ``clamp(g - lo)`` of its local shard, the
+    new row (its batch rows, heads whole) where ``g = min(index, S-1)``
+    falls in its range and the slot's old value elsewhere: the same
+    clamp, on the device, with no host sync.  Returns the shard, the
+    local caches and this rank's plain ``index``."""
+    sh = seq_shard(bufs[0])
+    i = index.to_local() if isinstance(index, DTensor) else index
+    g = i.clamp(max=bufs[0].shape[1] - 1) - sh.lo
+    inside = (g >= 0) & (g < sh.n)
+    slot = g.clamp(0, sh.n - 1).reshape(1).long()
+    local = []
+    for buf, row in zip(bufs, rows):
+        if seq_shard(buf)[2:4] != (sh.lo, sh.n):
+            raise ValueError("decode caches of one layer are sharded "
+                             "unlike")
+        t = buf.to_local()
+        new = local_rows(row, sh).to(t.dtype)
+        t.index_copy_(1, slot, torch.where(inside, new,
+                                           t.index_select(1, slot)))
+        local.append(t)
+    return sh, local, i
+
+
+# ---------------------------------------------------------------------------
 # GQA attention block
 # ---------------------------------------------------------------------------
 
@@ -584,18 +761,25 @@ def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
 
     cache: {"k": [B,S,Hkv,hd], "v": [B,S,Hkv,hd], "index": 0-d int32}
     x: [B,1,d].  The new K/V row is cast to the cache dtype and written at
-    ``index``; attention runs over the whole cache with the causal mask at
-    ``q_offset=index`` (unfilled slots masked), in plain torch as in the
-    JAX package; then ``index`` moves by one.  Returns (y [B,1,d], cache):
-    the same cache tensors, so a Kishu session sees the in-place write.
-    """
+    ``min(index, S-1)`` (:func:`decode_write`, the JAX package's
+    ``dynamic_update_slice`` clamp); attention runs over the whole cache
+    with the causal mask at ``q_offset=index`` (unfilled slots masked), in
+    plain torch as in the JAX package; then ``index`` moves by one.
+    DTensor caches (sharded on the sequence, ``ShardingRules.cache_spec``)
+    are written by :func:`sharded_decode_write` and attended by
+    ``SeqShard.attention`` on each rank's shard.  Returns (y [B,1,d],
+    cache): the same cache tensors, so a Kishu session sees the in-place
+    write."""
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
     idx = cache["index"]
-    slot = idx.reshape(1).long()
     k, v = cache["k"], cache["v"]
-    k.index_copy_(1, slot, k_new.to(k.dtype))
-    v.index_copy_(1, slot, v_new.to(v.dtype))
-    out = attention_core(q, k, v, causal=True, q_offset=idx)
+    if isinstance(k, DTensor):
+        sh, (k, v), i = sharded_decode_write([k, v], [k_new, v_new], idx)
+        out = sh.wrap(sh.attention(local_rows(q, sh), k, v, causal=True,
+                                   q_offset=i))
+    else:
+        decode_write([k, v], [k_new, v_new], idx)
+        out = attention_core(q, k, v, causal=True, q_offset=idx)
     y = einsum_f32("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
     idx.add_(1)
     return y, cache
@@ -685,8 +869,8 @@ def _mla_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
 def _mla_attend(p: dict, cfg: ArchConfig, q_nope: torch.Tensor,
                 q_rope: torch.Tensor, c_kv: torch.Tensor,
-                k_rope: torch.Tensor, *, q_offset=0, flash: bool = False
-                ) -> torch.Tensor:
+                k_rope: torch.Tensor, *, q_offset=0, flash: bool = False,
+                core=attention_core) -> torch.Tensor:
     """Attention in the latent space: the whole of ``c_kv`` expanded to
     per-head k_nope and v through ``wkv_b`` (as the JAX package does, on
     every call), the RoPE key broadcast over heads, scale
@@ -696,7 +880,9 @@ def _mla_attend(p: dict, cfg: ArchConfig, q_nope: torch.Tensor,
     whose contract wants k and v of one shape and scales by 1/sqrt of
     q's head dim: v is zero-padded to the qk head dim (192 for
     deepseek-v3), so the kernel's scale is MLA's and the padded columns
-    of its output are zeros, which are sliced away."""
+    of its output are zeros, which are sliced away.  ``core`` is the
+    attention otherwise (``SeqShard.attention`` on a rank's sequence
+    shard of the cache)."""
     m, nq = cfg.mla, cfg.n_heads
     kv = einsum_f32("bsr,rhk->bshk", c_kv, p["wkv_b"]).to(c_kv.dtype)
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
@@ -706,8 +892,8 @@ def _mla_attend(p: dict, cfg: ArchConfig, q_nope: torch.Tensor,
     q = torch.cat([q_nope, q_rope], dim=-1)
     qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
     if not flash:
-        return attention_core(q, k, v, causal=True, q_offset=q_offset,
-                              softmax_scale=1.0 / np.sqrt(qk_hd))
+        return core(q, k, v, causal=True, q_offset=q_offset,
+                    softmax_scale=1.0 / np.sqrt(qk_hd))
     if m.v_head_dim > qk_hd:
         raise ValueError(f"MLA prefill: v head dim {m.v_head_dim} exceeds "
                          f"the qk head dim {qk_hd}; the flash kernel's "
@@ -733,16 +919,27 @@ def mla_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     """One-token decode against the *compressed* MLA cache, updated in
     place: {"c_kv": [B,S,r], "k_rope": [B,S,1,rope], "index": 0-d int32}.
     The new latent row and RoPE key are cast to the cache dtype and written
-    at ``index`` (``index_copy_``, no host sync); attention runs over the
-    whole cache, expanded through ``wkv_b``, masked causally at
-    ``q_offset=index``; then ``index`` moves by one."""
+    at ``min(index, S-1)`` (:func:`decode_write`, no host sync); attention
+    runs over the whole cache, expanded through ``wkv_b``, masked causally
+    at ``q_offset=index``; then ``index`` moves by one.  DTensor caches
+    are written by :func:`sharded_decode_write`, and each rank expands its
+    sequence shard through ``wkv_b`` gathered whole: of the cache
+    (sharded on the sequence over ``model``) and ``wkv_b`` (sharded on
+    the heads over the same dim) the weight moves, never the cache."""
     q_nope, q_rope, c_new, kr_new = _mla_qkv(p, cfg, x, positions)
     idx = cache["index"]
-    slot = idx.reshape(1).long()
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    c_kv.index_copy_(1, slot, c_new.to(c_kv.dtype))
-    k_rope.index_copy_(1, slot, kr_new.to(k_rope.dtype))
-    out = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, q_offset=idx)
+    if isinstance(c_kv, DTensor):
+        sh, (c_kv, k_rope), i = sharded_decode_write(
+            [c_kv, k_rope], [c_new, kr_new], idx)
+        out = sh.wrap(_mla_attend(
+            {"wkv_b": whole(p["wkv_b"])}, cfg, local_rows(q_nope, sh),
+            local_rows(q_rope, sh), c_kv, k_rope, q_offset=i,
+            core=sh.attention))
+    else:
+        decode_write([c_kv, k_rope], [c_new, kr_new], idx)
+        out = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope,
+                          q_offset=idx)
     y = einsum_f32("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
     idx.add_(1)
     return y, cache

@@ -34,6 +34,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.serialize import torch_dtype
 from repro_torch.core.session import resolve_device
@@ -217,6 +218,8 @@ def _add_positions(cfg: ArchConfig, x: torch.Tensor,
     embedding in float32; RoPE models take positions in attention."""
     if cfg.rope_type != "none":
         return x
+    if isinstance(positions, DTensor):    # replicated: every rank's whole
+        positions = positions.to_local()
     return (x.float() + _sinusoidal_embed(positions, x.shape[-1])).to(x.dtype)
 
 
@@ -255,10 +258,17 @@ def _apply_layer(p: dict, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor,
 
 
 def _unstack(tree: Any, n: int) -> List[Any]:
-    """A tree of stacked leaves -> ``n`` trees of per-unit leaves."""
+    """A tree of stacked leaves -> ``n`` trees of per-unit leaves.  A
+    DTensor sharded on the stacked dim (the rules shard a shared expert's
+    leading dim as if it were the experts') is replicated on it first."""
     if isinstance(tree, dict):
         subs = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: subs[k][u] for k in tree} for u in range(n)]
+    if isinstance(tree, DTensor) and any(
+            isinstance(p, Shard) and p.dim == 0 for p in tree.placements):
+        tree = tree.redistribute(tree.device_mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+            for p in tree.placements])
     parts = tree.unbind(0)
     if len(parts) != n:
         raise ValueError(f"stacked leaf has {len(parts)} units, want {n}")
@@ -454,14 +464,33 @@ def decode_step(cfg: ArchConfig, params: dict, caches: dict, batch: dict,
     (float32 logits [B,1,V], caches): the caches are the same tensors,
     updated in place (an enc-dec model's ``enc_out`` is read, never
     written).  Where ``routes`` is a list, each MoE layer appends its
-    routing to it."""
+    routing to it.
+
+    On DTensors (params under ``ShardingRules``, caches under its
+    ``cache_spec``; run it under ``train.step.spmd``) the step is one SPMD
+    program: the index and positions are replicated DTensors, attention
+    and SSM layers decode on their local cache shards
+    (``layers.sharded_decode_write``, ``SeqShard.attention``,
+    ``mamba._sharded_ssm_decode``), the
+    batch-sharded ``enc_out`` is only read (cross-attention recomputes
+    its K/V, as the reference does) and MoE routes on the gathered
+    tokens."""
     x = embed_inputs(cfg, params, batch)
     bsz = x.shape[0]
     index = batch["index"]
-    # a Python int becomes a device scalar by a fill, not a blocking copy
-    index = index.to(device=x.device, dtype=torch.int32) \
-        if isinstance(index, torch.Tensor) else \
-        torch.full((), int(index), dtype=torch.int32, device=x.device)
+    if isinstance(index, DTensor):
+        index = index.to(dtype=torch.int32)
+    else:
+        # a Python int becomes a device scalar by a fill, not a blocking
+        # copy
+        index = index.to(device=x.device, dtype=torch.int32) \
+            if isinstance(index, torch.Tensor) else \
+            torch.full((), int(index), dtype=torch.int32, device=x.device)
+        if isinstance(x, DTensor):       # replicated over the SPMD mesh
+            mesh = x.device_mesh
+            index = DTensor.from_local(index, mesh,
+                                       [Replicate()] * mesh.ndim,
+                                       run_check=False)
     positions = index.reshape(1, 1).expand(bsz, 1)
     x = _add_positions(cfg, x, positions)
     if cfg.rope_type == "mrope":

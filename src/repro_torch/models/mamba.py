@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig, SSMConfig
@@ -242,36 +243,84 @@ def ssm_cache_init(cfg: ArchConfig, batch: int, dtype: torch.dtype, device,
     }
 
 
+def _decode_inputs(cfg: ArchConfig, conv_w, conv_b, dt_bias, a_log,
+                   conv: torch.Tensor, xin, b_raw, c_raw, dt_raw):
+    """One decode step's conv and SSD inputs from the projections (each
+    [B,1,...]) and the conv cache [B,W-1,C]: (the new window [B,W,C],
+    x [B,H,P], dt [B,H], A [H], B and C [B,H,N])."""
+    s, d_in, n_heads, _ = _dims(cfg)
+    bsz = xin.shape[0]
+    conv_in = torch.cat([xin, b_raw, c_raw], dim=-1)             # [B,1,C]
+    window = torch.cat([conv, conv_in], dim=1)                   # [B,W,C]
+    conv_out = (torch.einsum("bwc,wc->bc", window.float(), conv_w.float())
+                + conv_b.float())
+    conv_out = F.silu(conv_out).to(xin.dtype)[:, None, :]        # [B,1,C]
+    gn = s.n_groups * s.d_state
+    xin, b_raw, c_raw = torch.split(conv_out, [d_in, gn, gn], dim=-1)
+
+    dt = F.softplus(dt_raw[:, 0].float() + dt_bias.float())     # [B,H]
+    a = -torch.exp(a_log.float())
+    xh = xin[:, 0].reshape(bsz, n_heads, s.head_dim)
+    bh = _groups_to_heads(b_raw, n_heads, s.n_groups)[:, 0]
+    ch = _groups_to_heads(c_raw, n_heads, s.n_groups)[:, 0]
+    return window, xh, dt, a, bh, ch
+
+
 def ssm_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict
                ) -> Tuple[torch.Tensor, dict]:
     """One-token decode. x: [B,1,d]. cache: {"conv": [B,W-1,C], "state":
     [B,H,P,N]}, both written in place (``copy_``: the same tensors, so a
-    Kishu session and a captured CUDA graph see the write).  Returns
-    (y [B,1,d], cache)."""
+    Kishu session and a captured CUDA graph see the write).  DTensor
+    caches take :func:`_sharded_ssm_decode`.  Returns (y [B,1,d],
+    cache)."""
+    if isinstance(cache["state"], DTensor):
+        return _sharded_ssm_decode(p, cfg, x, cache)
     s, d_in, n_heads, _ = _dims(cfg)
-    bsz = x.shape[0]
     z, xin, b_raw, c_raw, dt_raw = _split_proj(p, cfg, x)
-    conv_in = torch.cat([xin, b_raw, c_raw], dim=-1)             # [B,1,C]
-    window = torch.cat([cache["conv"], conv_in], dim=1)          # [B,W,C]
-    conv_out = (torch.einsum("bwc,wc->bc", window.float(),
-                             p["conv_w"].float())
-                + p["conv_b"].float())
-    conv_out = F.silu(conv_out).to(x.dtype)[:, None, :]          # [B,1,C]
-    gn = s.n_groups * s.d_state
-    xin, b_raw, c_raw = torch.split(conv_out, [d_in, gn, gn], dim=-1)
-
-    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"].float())  # [B,H]
-    a = -torch.exp(p["A_log"].float())
-    xh = xin[:, 0].reshape(bsz, n_heads, s.head_dim)
-    bh = _groups_to_heads(b_raw, n_heads, s.n_groups)[:, 0]
-    ch = _groups_to_heads(c_raw, n_heads, s.n_groups)[:, 0]
-
+    window, xh, dt, a, bh, ch = _decode_inputs(
+        cfg, p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"],
+        cache["conv"], xin, b_raw, c_raw, dt_raw)
     y, new_state = ssd_decode_step(cache["state"], xh, dt, a, bh, ch,
                                    p["D"])
-    out = _gate_out(p, cfg, y.reshape(bsz, 1, d_in), z, x)
+    out = _gate_out(p, cfg, y.reshape(x.shape[0], 1, d_in), z, x)
     cache["conv"].copy_(window[:, 1:])
     cache["state"].copy_(new_state)
     return out, cache
+
+
+def _sharded_ssm_decode(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                        cache: dict) -> Tuple[torch.Tensor, dict]:
+    """:func:`ssm_decode` on DTensor caches under
+    ``ShardingRules.cache_spec``: ``state`` [B,H,P,N] sharded on the
+    batch and the heads, ``conv`` [B,W-1,C] on the batch (and on W-1
+    where ``model`` divides it).  Each rank takes its batch rows of the
+    projections with every channel (the conv weight gathered whole),
+    updates the whole conv window alike on every rank of a batch shard,
+    and runs :func:`ssd_decode_step` on its own heads; both caches are
+    written in place on the local shards (``copy_``).  ``y`` goes on as a
+    DTensor sharded like the state."""
+    s, d_in, n_heads, _ = _dims(cfg)
+    state, conv = cache["state"], cache["conv"]
+    mesh = state.device_mesh
+    sh = layers.seq_shard(conv)
+    z, *proj = _split_proj(p, cfg, x)
+    window, xh, dt, a, bh, ch = _decode_inputs(
+        cfg, *(layers.whole(p[k]) for k in ("conv_w", "conv_b", "dt_bias",
+                                             "A_log")),
+        *(layers.local_rows(t, sh) for t in [conv] + proj))
+    sloc, soff = layers.shard_box(state)
+    h = slice(soff[1], soff[1] + sloc[1])                        # my heads
+    y, new_state = ssd_decode_step(state.to_local(), xh[:, h], dt[:, h],
+                                   a[h], bh[:, h], ch[:, h],
+                                   layers.whole(p["D"])[h])
+    state.to_local().copy_(new_state)
+    conv.to_local().copy_(window[:, 1 + sh.lo:1 + sh.lo + sh.n])
+    b = state.shape[0]
+    y = DTensor.from_local(y.contiguous(), mesh, list(state.placements),
+                           run_check=False, shape=(b, n_heads, s.head_dim),
+                           stride=(n_heads * s.head_dim, s.head_dim, 1))
+    y = layers._dt_view(y, (b, d_in)).unsqueeze(1)
+    return _gate_out(p, cfg, y, z, x), cache
 
 
 def ssd_reference(x, dt, a, b_ssm, c_ssm, d_skip):

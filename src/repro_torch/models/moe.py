@@ -103,10 +103,6 @@ def dispatch_indices(top_e: torch.Tensor, n_experts: int, cap: int
     return dest, valid
 
 
-def _whole(x: torch.Tensor) -> torch.Tensor:
-    return x.full_tensor() if isinstance(x, DTensor) else x
-
-
 def _replicated(x: torch.Tensor, mesh) -> DTensor:
     return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
@@ -138,7 +134,7 @@ def _moe(p: dict, cfg: ArchConfig, x: torch.Tensor,
     xt = x.reshape(t, d)
     cap = capacity(t, m)
 
-    top_p, top_e = route(_whole(p["router"]), xt, m)
+    top_p, top_e = route(layers.whole(p["router"]), xt, m)
     dest, valid = dispatch_indices(top_e, m.n_experts, cap)
     if routes is not None:
         routes.append((top_e.reshape(b, s, m.top_k),
@@ -168,7 +164,7 @@ def _moe(p: dict, cfg: ArchConfig, x: torch.Tensor,
     h = (F.silu(g) * u).to(x.dtype)
     if shs is not None:
         h = shctx.constrain(h, shs[4])
-    y = _whole(einsum_f32("ecf,efd->ecd", h, w_down).to(x.dtype))
+    y = layers.whole(einsum_f32("ecf,efd->ecd", h, w_down).to(x.dtype))
 
     y = torch.cat([y.reshape(m.n_experts * cap, d),
                    torch.zeros((1, d), dtype=y.dtype, device=y.device)])
@@ -178,7 +174,8 @@ def _moe(p: dict, cfg: ArchConfig, x: torch.Tensor,
         .sum(dim=1).to(x.dtype)
 
     if m.n_shared_experts:
-        out = out + _whole(layers.mlp_forward(p["shared"], x)).reshape(t, d)
+        out = out + layers.whole(
+            layers.mlp_forward(p["shared"], x)).reshape(t, d)
     return out.reshape(b, s, d)
 
 
@@ -186,7 +183,7 @@ def aux_load_balance_loss(router_w: torch.Tensor, x_flat: torch.Tensor,
                           mcfg: MoEConfig) -> torch.Tensor:
     """Switch-style load-balancing auxiliary loss (float32 scalar; over
     the gathered tokens for DTensors, as :func:`moe_forward` routes)."""
-    x_flat, router_w = _whole(x_flat), _whole(router_w)
+    x_flat, router_w = layers.whole(x_flat), layers.whole(router_w)
     logits = einsum_f32("td,de->te", x_flat, router_w)
     probs = torch.softmax(logits, dim=-1)
     top1 = probs.argmax(dim=-1)

@@ -72,7 +72,7 @@ def _mesh_shape(mesh) -> Tuple[int, ...]:
         else tuple(mesh)
 
 
-def _local_box(shape: Sequence[int], mesh_shape: Sequence[int],
+def local_box(shape: Sequence[int], mesh_shape: Sequence[int],
                coord: Sequence[int], placements: Sequence[Placement]
                ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     """(local shape, global offset) of the shard at ``coord``, by
@@ -118,7 +118,7 @@ def host_shard_ranges(shape: Sequence[int], dtype, mesh,
              list(range(int(np.prod(mshape, dtype=np.int64)))))
     out: Dict[int, List[Range]] = {}
     for rank, coord in zip(ranks, mesh_coordinates(mshape)):
-        local, offset = _local_box(shape, mshape, coord, placements)
+        local, offset = local_box(shape, mshape, coord, placements)
         out[int(rank)] = [_box_range(shape, item, local, offset)
                           or (0, total)]
     return out
@@ -129,7 +129,7 @@ def local_byte_range(x: DTensor) -> Optional[Range]:
     when its shard is not one contiguous run (then only the full image
     holds it)."""
     coord = x.device_mesh.get_coordinate()
-    local, offset = _local_box(x.shape, x.device_mesh.shape, coord,
+    local, offset = local_box(x.shape, x.device_mesh.shape, coord,
                                x.placements)
     return _box_range(tuple(x.shape), x.element_size(), local, offset)
 
@@ -143,7 +143,7 @@ def restore_shard(store: ChunkStore, manifest: dict, mesh,
     meta = manifest["base"]["meta"]
     shape, dtype = tuple(meta["shape"]), meta["dtype"]
     coord = mesh.get_coordinate()
-    local, offset = _local_box(shape, mesh.shape, coord, placements)
+    local, offset = local_box(shape, mesh.shape, coord, placements)
     item = torch.empty((), dtype=torch_dtype(dtype)).element_size()
     if device is None:
         device = torch.device(mesh.device_type)

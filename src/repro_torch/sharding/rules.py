@@ -352,3 +352,14 @@ def shard_train_state(state: dict, rules: "ShardingRules") -> dict:
                     "nu": distribute_tree(state["opt"]["nu"], rules.mesh, pl),
                     "count": state["opt"]["count"]},
             "step": state["step"], "rng": state["rng"]}
+
+
+def shard_caches(caches: dict, rules: "ShardingRules", batch: int) -> dict:
+    """A plain decode cache tree (``models.lm.init_caches``) as DTensors
+    under ``rules.cache_spec`` (the JAX package's ``device_put(caches,
+    cache_spec)``): K/V and MLA's ``c_kv``/``k_rope`` sharded on the
+    sequence over ``model``, SSM ``state`` on its heads, ``conv`` and
+    ``enc_out`` on the batch, ``index`` replicated; batch dims over the
+    data axes where they divide ``batch``."""
+    return distribute_tree(caches, rules.mesh,
+                           rules.cache_spec(caches, batch))

@@ -198,19 +198,30 @@ def _greedy_step(cfg: ArchConfig, params, caches, batch):
     """(float32 logits [B,1,V], next token [B,1] int32): ``lm.decode_step``
     and the greedy pick over the true vocabulary; caches updated in
     place."""
-    with torch.no_grad():
+    with torch.no_grad(), spmd({"params": params, "caches": caches}):
         logits, _ = lm.decode_step(cfg, params, caches, batch)
-        nxt = logits[..., :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+        nxt = _whole_last_dim(logits)[..., :cfg.vocab_size] \
+            .argmax(dim=-1).to(torch.int32)
     return logits, nxt
 
 
 def make_decode_step(cfg: ArchConfig):
     """``serve_step(params, caches, batch) -> (next_token [B,1] int32,
     caches)``: greedy decode of one token; the caches are updated in
-    place."""
+    place.  DTensor params and caches (``ShardingRules`` and
+    ``sharding.rules.shard_caches``) run it as one SPMD program
+    (:func:`spmd`): each rank writes and attends over its own sequence
+    shard of the caches, and the next token is a batch-sharded
+    DTensor."""
     def serve_step(params, caches, batch):
         return _greedy_step(cfg, params, caches, batch)[1], caches
     return serve_step
+
+
+class ShardedCaptureError(TypeError):
+    """:class:`GraphedDecodeStep` was given DTensor leaves: the sharded
+    step is not captured into a CUDA graph, and the graph never falls
+    back to running it eagerly."""
 
 
 # the batch's inputs a graphed step reads from static buffers: token ids,
@@ -248,8 +259,9 @@ class GraphedDecodeStep:
       graph; the step has no host sync.
 
     A failed capture or replay raises: on CUDA the eager step never runs
-    in the graph's place.  ``captures`` counts captures and ``capture_s``
-    their seconds, apart from the replayed steps."""
+    in the graph's place; DTensor leaves raise
+    :class:`ShardedCaptureError`.  ``captures`` counts captures and
+    ``capture_s`` their seconds, apart from the replayed steps."""
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
@@ -269,12 +281,18 @@ class GraphedDecodeStep:
         return logits, nxt, caches
 
     def _run(self, params, caches, batch, *, logits: bool):
+        leaves = tree_leaves(params) + tree_leaves(caches)
+        if any(isinstance(t, DTensor) for t in leaves):
+            raise ShardedCaptureError(
+                "GraphedDecodeStep takes plain tensors: the sharded decode "
+                "step (DTensor params or caches) is not captured; call "
+                "make_decode_step's step")
         inputs = {k: batch[k] for k in _GRAPH_INPUTS if k in batch}
         if not next(iter(inputs.values())).is_cuda:
             return _greedy_step(self.cfg, params, caches, batch)
         key = tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()) \
             + tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.stride())
-                    for t in tree_leaves(params) + tree_leaves(caches))
+                    for t in leaves)
         if key != self._key:
             self._capture(params, caches, inputs, key)
         for k, v in inputs.items():

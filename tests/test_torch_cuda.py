@@ -1826,3 +1826,174 @@ def test_dtensor_einsum_runs_the_route_on_local_shards(dev, tmp_path):
                    for g, h in zip(got, want))
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# decode at a full cache, and on sharded caches
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pieces", [1, 2, 4])
+def test_split_attention_over_cut_caches_matches_attention_core(
+        dev, dtype, pieces):
+    """``layers.split_attention`` over a cache cut into 1, 2 and 4 pieces
+    along the sequence, its reductions over a list of the pieces' tensors,
+    against ``attention_core`` on the whole cache: float32 atol/rtol
+    1e-5; bf16 within one bf16 rounding of the output (rtol 2**-7, atol
+    2**-8 of the largest), as the two differ only in how the softmax sums
+    its exponentials."""
+    import functools
+    from repro_torch.models import layers
+    g = torch.Generator(device="cpu").manual_seed(pieces)
+    b, s, hq, hkv, hd, index = 3, 64, 8, 2, 64, 41
+    q = torch.randn(b, 1, hq, hd, generator=g).to(dtype).to(dev)
+    k = torch.randn(b, s, hkv, hd, generator=g).to(dtype).to(dev)
+    v = torch.randn(b, s, hkv, hd, generator=g).to(dtype).to(dev)
+    idx = torch.tensor(index, dtype=torch.int32, device=dev)
+    want = layers.attention_core(q, k, v, causal=True, q_offset=idx)
+    n = s // pieces
+    got = layers.split_attention(
+        q, list(k.split(n, dim=1)), list(v.split(n, dim=1)),
+        list(range(0, s, n)), q_offset=idx,
+        reduce_max=lambda xs: functools.reduce(torch.maximum, xs),
+        reduce_sum=lambda xs: functools.reduce(torch.add, xs))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        d = (got.float() - want.float()).abs()
+        tol = 2.0 ** -7 * want.float().abs() \
+            + 2.0 ** -8 * float(want.float().abs().max())
+        assert bool(d.le(tol).all()), float(d.max())
+
+
+def test_graphed_decode_at_a_full_cache(dev):
+    """Decode past a full cache (index S .. S+2 on S slots): the graph
+    replays with no device assert, equals the eager step bit for bit,
+    and gives the CPU port's logits and caches (the JAX clamp: the new
+    row lands in slot S-1), float32."""
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.step import GraphedDecodeStep
+    cfg, params = _serve_setup(dev, "float32")
+    b, s, steps = 2, 4, 7
+    toks = torch.randint(0, cfg.vocab_size, (b, steps),
+                         generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32)
+    graphed = GraphedDecodeStep(cfg)
+    cg = lm.init_caches(cfg, b, s, device=dev)
+    ce = lm.init_caches(cfg, b, s, device=dev)
+    p_cpu = tree_map(lambda t: t.cpu(), params)
+    cc = lm.init_caches(cfg, b, s, device="cpu")
+    for t in range(steps):
+        tok = toks[:, t:t + 1]
+        lg, _, _ = graphed.with_logits(params, cg, {"tokens": tok.to(dev),
+                                                    "index": t})
+        with torch.no_grad():
+            le, _ = lm.decode_step(cfg, params, ce, {"tokens": tok.to(dev),
+                                                     "index": t})
+            lc, _ = lm.decode_step(cfg, p_cpu, cc, {"tokens": tok,
+                                                    "index": t})
+        torch.cuda.synchronize()
+        assert torch.equal(lg, le), t
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    assert graphed.captures == 1 and _leaves_equal(cg, ce)
+    for g, w in zip(_flat_leaves(cg), _flat_leaves(cc)):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=1e-4)
+
+
+def _flat_leaves(tree):
+    from repro_torch.optim.adamw import tree_leaves
+    return tree_leaves(tree) if isinstance(tree, dict) else [tree]
+
+
+def _sharded_smollm(dev, tmp_path, dtype="float32"):
+    """A one-rank NCCL group, a (1, 1) mesh, reduced smollm params under
+    ShardingRules: (cfg, plain params, DTensor params, rules, mesh)."""
+    from repro_torch.launch.mesh import init_file_group, make_local_mesh
+    from repro_torch.sharding.rules import ShardingRules, distribute_tree
+    init_file_group("nccl", 0, 1, str(tmp_path / "pg"))
+    mesh = make_local_mesh(model=1)
+    cfg, params = _serve_setup(dev, dtype)
+    rules = ShardingRules(cfg, mesh)
+    dparams = distribute_tree(params, mesh, rules.param_shardings(params))
+    return cfg, params, dparams, rules, mesh
+
+
+def test_graphed_decode_raises_on_dtensor_leaves(dev, tmp_path):
+    """The sharded step is not captured, and never runs eagerly in the
+    graph's place: DTensor params or caches raise."""
+    import torch.distributed as dist
+    from repro_torch.models import lm
+    from repro_torch.sharding.rules import shard_caches
+    from repro_torch.train.step import GraphedDecodeStep, ShardedCaptureError
+    cfg, params, dparams, rules, _ = _sharded_smollm(dev, tmp_path)
+    try:
+        plain = lm.init_caches(cfg, 2, 8, device=dev)
+        sharded = shard_caches(lm.init_caches(cfg, 2, 8, device=dev), rules, 2)
+        step = GraphedDecodeStep(cfg)
+        batch = {"tokens": torch.zeros((2, 1), dtype=torch.int32,
+                                       device=dev), "index": 0}
+        for p, c in ((dparams, sharded), (params, sharded),
+                     (dparams, plain)):
+            with pytest.raises(ShardedCaptureError):
+                step(p, c, batch)
+        assert step.captures == 0
+        assert not any(bool(t.any()) for t in _flat_leaves(plain))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_decode_on_one_nccl_rank_matches_the_plain_step(dev,
+                                                                tmp_path):
+    """Params under ShardingRules and caches under ``shard_caches`` on a
+    one-rank NCCL (1, 1) mesh: seven teacher-forced steps on 4-slot
+    caches (the last three past a full cache) against the plain eager
+    step, float32 (logits atol/rtol 1e-4, caches 1e-5 / 1e-4); each step
+    issues its three reductions per attention layer (``CommDebugMode``),
+    so it cannot pass on the plain path; the caches stay DTensors on the
+    card, written in place."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.models import lm
+    from repro_torch.sharding.rules import shard_caches
+    from repro_torch.train.step import make_decode_step, spmd
+    cfg, params, dparams, rules, mesh = _sharded_smollm(dev, tmp_path)
+    try:
+        b, s, steps = 2, 4, 7
+        toks = torch.randint(0, cfg.vocab_size, (b, steps), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(4), dtype=torch.int32)
+        plain = lm.init_caches(cfg, b, s, device=dev)
+        sharded = shard_caches(lm.init_caches(cfg, b, s, device=dev), rules, b)
+        ptrs = [t.to_local().data_ptr() for t in _flat_leaves(sharded)]
+        tok_pl = list(rules.batch_spec({"t": toks[:, :1]})["t"])
+        for t in range(steps):
+            tok = toks[:, t:t + 1]
+            comm = CommDebugMode()
+            with torch.no_grad(), spmd(dparams), comm:
+                got, _ = lm.decode_step(cfg, dparams, sharded, {
+                    "tokens": distribute_tensor(tok, mesh, tok_pl),
+                    "index": t})
+            with torch.no_grad():
+                want, _ = lm.decode_step(cfg, params, plain,
+                                         {"tokens": tok, "index": t})
+            n = sum(v for k, v in comm.get_comm_counts().items()
+                    if str(k).endswith("all_reduce"))
+            assert n >= 3 * cfg.n_layers, (t, n)
+            torch.testing.assert_close(got.full_tensor(), want, atol=1e-4,
+                                       rtol=1e-4)
+        leaves = _flat_leaves(sharded)
+        assert all(isinstance(x, DTensor) and x.to_local().is_cuda
+                   for x in leaves)
+        assert [x.to_local().data_ptr() for x in leaves] == ptrs
+        for g, w in zip(leaves, _flat_leaves(plain)):
+            torch.testing.assert_close(g.full_tensor(), w, atol=1e-5,
+                                       rtol=1e-4)
+        nxt, _ = make_decode_step(cfg)(dparams, sharded, {
+            "tokens": distribute_tensor(toks[:, -1:], mesh, tok_pl),
+            "index": steps})
+        assert isinstance(nxt, DTensor) and nxt.shape == (b, 1)
+    finally:
+        dist.destroy_process_group()

@@ -2,9 +2,10 @@
 ``test_dryrun_machinery_small_mesh`` and its HLO-parser test): a reduced
 qwen3-1.7b train step on a (2,4) mesh of a ``fake`` process group moves
 more than 0 collective bytes; the collective counter counts a hand-built
-DTensor program exactly; a prefill cell runs and decode cells are
-skipped; cells, shapes and the production meshes build with no
-allocation; artifacts land under ``build/``."""
+DTensor program exactly; prefill and decode cells run, and a decode
+cell's collectives do not grow with the cache; ``long_500k`` runs for a
+sub-quadratic arch and skips otherwise; cells, shapes and the production
+meshes build with no allocation; artifacts land under ``build/``."""
 import os
 from pathlib import Path
 
@@ -15,6 +16,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs import shapes
+from repro_torch.core.namespace import flatten_tree
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import init_fake_group
 from repro_torch.models.config import get_config
@@ -48,23 +50,106 @@ def test_dryrun_machinery_small_mesh(fake8):
     assert m["flops"] > 0
 
 
-def test_prefill_cell_runs_and_decode_cells_are_skipped(fake8, tmp_path):
+def test_prefill_and_decode_cells_run(fake8, tmp_path):
     """A reduced qwen3-1.7b prefill on the (2,4) fake mesh runs as one
     SPMD program (flash attention on each rank's local batch and heads)
-    and moves collective bytes; a decode cell is recorded as skipped, as
-    decode on DTensor caches is not ported."""
+    and moves collective bytes; so does its decode cell, on meta DTensor
+    caches placed by ``cache_spec`` (the sequence over model), as the
+    JAX package builds it; a full-size decode cell is recorded ok with
+    the reference's keys."""
     small = reduced(get_config("qwen3-1.7b"), n_layers=2)
     cell = dryrun.build_cell("qwen3-1.7b", "prefill_32k", fake8,
                              cfg_override=small)
     m = dryrun._measure(cell)
     assert m["flops"] > 0 and m["collectives"]["total"] > 0
-    with pytest.raises(ValueError):
-        dryrun.build_cell("qwen3-1.7b", "decode_32k", fake8,
-                          cfg_override=small)
+    cell = dryrun.build_cell("qwen3-1.7b", "decode_32k", fake8,
+                             cfg_override=small)
+    params, caches, batch = cell["args"]
+    k = caches["stages"]["stage_0"]["sub_0"]["attn"]["k"]
+    assert isinstance(k, DTensor) and k.to_local().is_meta
+    assert tuple(k.placements) == (Shard(1), Shard(2))   # batch, sequence
+    m = dryrun._measure(cell)
+    assert m["flops"] > 0 and m["collectives"]["n_all-reduce"] > 0
     rec = dryrun.run_cell("qwen3-1.7b", "decode_32k", "single",
+                          out_dir=str(tmp_path))      # on 256 fake ranks
+    dist.destroy_process_group()
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["n_devices"] == 256 and rec["flops"] > 0
+    assert set(rec["collectives"]) >= set(dryrun.COLLECTIVES) | {"total"}
+    assert rec["arg_bytes_per_device"] > 0
+    init_fake_group(8)                    # the fixture destroys a group
+
+
+def _decode_cell_at(mesh, arch, seq, monkeypatch):
+    """A reduced decode cell whose caches hold ``seq`` slots (encoder
+    frames stay min(seq, 4096), as ``input_specs`` sizes them)."""
+    monkeypatch.setitem(shapes.SHAPES, "decode_32k",
+                        shapes.ShapeSpec("decode_32k", seq, 8, "decode"))
+    cell = dryrun.build_cell(arch, "decode_32k", mesh,
+                             cfg_override=reduced(get_config(arch)))
+    return cell, dryrun._measure(cell)
+
+
+@pytest.mark.parametrize("arch,lengths", [
+    ("qwen3-1.7b", (72, 264)), ("deepseek-v3-671b", (72, 264)),
+    ("jamba-1.5-large-398b", (72, 264)),
+    ("whisper-large-v3", (4104, 16392))])
+def test_decode_collectives_do_not_grow_with_the_cache(fake8, monkeypatch,
+                                                       arch, lengths):
+    """No cache is gathered: on the (2,4) fake mesh a reduced decode
+    cell moves the same collective bytes, kind by kind, at two cache
+    lengths, and no collective's result is the size of a
+    sequence-sharded cache leaf (global, local or one unit's, with the
+    sequence gathered or not; the lengths are no powers of two, so that
+    no weight of the reduced configs has such a size).  Whisper keeps
+    its encoder frames fixed (4096 at both lengths): its cross-attention
+    recomputes K/V from ``enc_out`` every step, as the reference does,
+    and what that moves scales with the frames, not the cache."""
+    recs = []
+    for seq in lengths:
+        cell, m = _decode_cell_at(fake8, arch, seq, monkeypatch)
+        sizes = set()
+        for name, leaf in flatten_tree(cell["args"][1]).items():
+            if name.split("/")[-1] not in ("k", "v", "c_kv", "k_rope"):
+                continue
+            local = leaf.to_local()
+            item, u = leaf.element_size(), leaf.shape[0]
+            g = leaf.numel() * item
+            lo = local.numel() * item
+            sizes |= {g, g // u, lo, lo // u, lo * 4 // u, lo * 4}
+        assert sizes
+        hit = [r for r in m["results"] if r[1] in sizes]
+        assert not hit, (arch, seq, hit[:4])
+        recs.append(m["collectives"])
+    assert recs[0] == recs[1], (arch, recs)
+    assert recs[0]["n_all-reduce"] > 0
+
+
+def test_long_500k_runs_for_sub_quadratic_and_skips_otherwise(tmp_path):
+    """mamba2 (reduced, registered for this test) runs ``long_500k`` on
+    the (16,16) mesh; qwen3-1.7b is skipped with the reference's
+    reason."""
+    from repro.configs.shapes import shape_applicable as jshape_applicable
+    from repro.models.config import get_config as jget
+    import repro.configs  # noqa: F401
+    from repro_torch.models import config as config_mod
+    name = "mamba2-780m-reduced-dryrun-test"
+    config_mod._REGISTRY[name] = reduced(get_config("mamba2-780m")).replace(
+        name=name)
+    try:
+        rec = dryrun.run_cell(name, "long_500k", "single",
+                              out_dir=str(tmp_path))
+    finally:
+        del config_mod._REGISTRY[name]
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["flops"] > 0 and rec["collectives"]["total"] > 0
+    rec = dryrun.run_cell("qwen3-1.7b", "long_500k", "single",
                           out_dir=str(tmp_path))
     assert rec["status"] == "skip"
-    assert rec["reason"] == dryrun.DECODE_NOT_PORTED
+    assert rec["reason"] == jshape_applicable(jget("qwen3-1.7b"),
+                                              "long_500k")[1]
 
 
 def test_collective_counter_counts_a_hand_built_program(fake8):
