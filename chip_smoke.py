@@ -156,17 +156,41 @@ Phase 9  Cell J, decode on DTensor caches: Phase 8's model (SmolLM-360M,
          mesh, batch 8, 1,024-slot caches (83,886,080 bytes of K + V), a
          64-token prompt, 16 KiB chunks, a KishuSession over the group.
          The sharded prefill (flash on the local shards, all 8 launches
-         on tc) gives the prompt's logits, the sharded eager decode step
-         fills the prompt teacher-forced within the bf16 logit bound;
-         the prefix commit equals the plain commit of the same cache
-         values (chunk keys, hashes, bytes); flavors 1, 2, 1 of 32 tokens
-         are each followed by a rollback to the prefix, timed and
-         verified exact by block_diff on the local shards; the repeated
-         flavor gives the same tokens and caches.  The sharded step, teacher-
-         forced from the prefix, is held against the plain graphed step
-         on plain copies of the caches (max difference printed); one
-         sharded step under CommDebugMode must issue three all-reduces in
-         each attention layer.  The phase must end within 120 s.
+         on tc) gives the prompt's logits; the sharded decode step,
+         captured once in a CUDA graph (``GraphedDecodeStep`` on DTensor
+         leaves: its all-reduces and gathers are NCCL launches in the
+         graph), fills the prompt teacher-forced within the bf16 logit
+         bound; the prefix commit equals the plain commit of the same
+         cache values (chunk keys, hashes, bytes); flavors 1, 2, 1 of 32
+         tokens are each followed by a rollback to the prefix, timed and
+         verified exact by block_diff on the local shards, which patches
+         every cache leaf in place, so the phase captures once in all;
+         the repeated flavor gives the same tokens and caches.  Teacher-
+         forced from the prefix, the graphed sharded step must equal the
+         eager sharded step on a copy of the caches bit for bit (logits
+         and caches) and stay within the bf16 bound of the plain graphed
+         step on plain copies; one eager sharded step under
+         CommDebugMode must issue three all-reduces in each attention
+         layer.  Both sharded steps are profiled (ms a step, busy share).
+         The phase must end within 120 s.
+Phase 10 Cell K, training where the JAX package trains: (a)
+         phi3.5-moe-42b-a6.6b at full width, its first layer of 32
+         (1,564,553,216 params, bf16, float32 moments: 15.6 GB of state)
+         under ShardingRules on Phase 8's one-rank NCCL mesh, two sharded
+         train steps (batch 8 x 128) as Kishu cells on a MemoryStore,
+         each held against the plain step on a plain copy (Phase 8's
+         tolerances), the DTensor commit against the plain commit of the
+         same values (chunk keys, hashes, logical bytes), a checkout back
+         to the first step's commit, exact under block_diff; (b)
+         qwen2-vl-72b at full width, its first layer of 80 (3,369,099,264
+         params, bf16, bf16 moments: 20.2 GB), plain tensors, one train
+         cell from seeded frontend ``embeds`` [8, 128, 8192] and
+         ``positions_thw`` [8, 128, 3]: ``embed``'s gradient is zero (its
+         moments stay zero) and its new value is the decay-only AdamW
+         update, bit for bit; a rollback to the parent, exact under
+         block_diff; the cell replayed from there commits the same chunk
+         keys.  Launches are read from both parts, the comparisons' taken
+         out.
 
 Output: per-phase lines, one JSON line of kernels, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  The full record goes to
@@ -176,8 +200,8 @@ repository, it exits non-zero before printing any result.
 
     python3 chip_smoke.py --only phase2,phase6 [--root DIR]
 
-runs only the named phases (2, 6 and the serving phases 5, 7, 7b, 7c,
-7d and 9, each on a store of its own), taken from the ``chip_smoke.py`` and
+runs only the named phases (2, 6, the serving phases 5, 7, 7b, 7c,
+7d and 9, and the training phase 10, each on a store of its own), taken from the ``chip_smoke.py`` and
 ``src/`` under ``DIR`` (default: this tree), and prints one line each of
 wall times, decode ms a step, the graphed step's busy share and peak
 memory.  Two trees are compared by calling it in turns with each tree's
@@ -185,7 +209,10 @@ root.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -266,7 +293,7 @@ ENC_PATH_KERNELS = SERVE_PATH_KERNELS
 # the phases whose launch counts the kernels line reports, each read from
 # its own run (counts set to 0 just before it)
 PATHS = ("phase2", "phase4", "phase4b", "phase5", "phase6", "phase7",
-         "phase7b", "phase7c", "phase7d", "phase8", "phase9")
+         "phase7b", "phase7c", "phase7d", "phase8", "phase9", "phase10")
 # Phase 8: SmolLM-360M at full width, its first 8 of 32 layers, as
 # DTensors on a one-rank NCCL mesh; the kernels its Kishu path launches on
 # DTensor co-variables
@@ -283,18 +310,35 @@ DELTA_TOL = 0.1
 # Phase 8's cut to its first 8 of 32 layers, bf16, params under
 # ShardingRules and caches under shard_caches on a one-rank NCCL mesh;
 # batch 8 with 1,024-slot caches (K + V: 83,886,080 bytes), a 64-token
-# prompt (the sharded step is eager and host-bound: the prompt is sized so
-# that the phase stays under PHASE9_LIMIT_S), 32 generated tokens a
-# flavor, Cell C's 16 KiB chunks
+# prompt (sized when the sharded step ran eagerly, kept so that the cell
+# compares across PRs), 32 generated tokens a flavor, Cell C's 16 KiB
+# chunks
 SHARD_LAYERS = 8
 SHARD_BATCH, SHARD_SLOTS, SHARD_PROMPT, SHARD_GEN = 8, 1024, 64, 32
-SHARD_COMPARE = 16        # teacher-forced steps held against the plain step
+SHARD_COMPARE = 16        # teacher-forced steps held against the eager
+                          # sharded and the plain graphed step
 SHARD_PATH_KERNELS = ("flash_attention", "chunk_hash", "delta_pack",
                       "patch_scatter", "block_diff")
 PHASE9_LIMIT_S = 120.0
+# Phase 10 (Cell K): training where the JAX package trains — phi3.5-moe at
+# full width, its first layer of 32 (1.56 B params; 16 experts of d_ff
+# 6400 are 1.26 B of them), sharded on a one-rank NCCL mesh, and
+# qwen2-vl-72b at full width, its first layer of 80 (3.37 B params, the
+# untied embed and lm_head 1.25 B each), from frontend embeddings; Phase
+# 8's batch of 8 x 128; states of 15.6 GB and 20.2 GB, committed to a
+# MemoryStore (a dir:// store writes about 0.34 GB/s on the card's
+# machine, 45 s a commit here); the kernels of the trainer path, plus
+# patch_scatter for the one-chunk step and count leaves a checkout patches
+TRAIN_MOE_LAYERS, TRAIN_VLM_LAYERS = 1, 1
+TRAIN_BATCH, TRAIN_SEQ = DIST_BATCH, DIST_SEQ
+TRAIN_PATH_KERNELS = ("chunk_hash", "delta_pack", "patch_scatter",
+                      "block_diff")
+# about 230 s on an H100 80GB HBM3 at 700 W: the dense commits of 15.6 GB
+# of DTensor state and 20.2 GB of plain state take most of it
+PHASE10_LIMIT_S = 300.0
 # the phases ``--only`` runs alone: each takes (torch, dev, workdir)
 TIMED_PHASES = ("phase2", "phase6", "phase5", "phase7", "phase7b",
-                "phase7c", "phase7d", "phase9")
+                "phase7c", "phase7d", "phase9", "phase10")
 
 
 def fail(msg: str) -> None:
@@ -1169,13 +1213,23 @@ def phase3(torch) -> dict:
 
 def verify_exact(torch, ns, snap, label: str) -> float:
     """Every tensor of ``ns`` bit-identical to ``snap``, by the block_diff
-    kernel (``delta.exact_dirty_indices``).  Returns the seconds taken."""
+    kernel (``delta.exact_dirty_indices``).  A :func:`host_snapshot` leaf
+    is copied back to the card alone and held against the live local
+    shard.  Returns the seconds taken."""
+    from torch.distributed.tensor import DTensor
     from repro_torch.core.delta import exact_dirty_indices
     t0 = time.perf_counter()
     names = sorted(n for n in ns.names() if isinstance(ns[n], torch.Tensor))
     check(names == sorted(snap), f"{label}: tensor names differ")
-    dirty = {n: exact_dirty_indices(ns[n], snap[n], CB) for n in names}
-    bad = {n: d[:4] for n, d in dirty.items() if d}
+    bad = {}
+    for n in names:
+        x, want = ns[n], snap[n]
+        if want.device != x.device:
+            x = x.to_local() if isinstance(x, DTensor) else x
+            want = want.to(x.device)
+        d = exact_dirty_indices(x, want, CB)
+        if d:
+            bad[n] = d[:4]
     check(not bad, f"{label}: not bit-identical: {bad}")
     return time.perf_counter() - t0
 
@@ -2322,6 +2376,19 @@ def phase7d(torch, dev, workdir: Path) -> dict:
 # Phase 8: distribution on the card (DTensor co-variables, one NCCL rank)
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def uncounted(held: dict):
+    """Kernel launches inside the block are added to ``held``: a
+    comparison's launches, which a path's counts leave out."""
+    from repro_torch.kernels import _lib
+    before = _lib.launches()
+    try:
+        yield
+    finally:
+        for k, v in _lib.launches().items():
+            held[k] = held.get(k, 0) + v - before.get(k, 0)
+
+
 def phase8(torch, dev, workdir: Path) -> dict:
     """SmolLM-360M (its first DIST_LAYERS layers, full width) as DTensors
     under ShardingRules on a (1, 1) CUDA mesh of a one-rank NCCL group,
@@ -2407,14 +2474,6 @@ def phase8(torch, dev, workdir: Path) -> dict:
         # launches of the comparisons with plain tensors (the plain step,
         # the plain commit) are taken out of the path's counts
         held: dict = {}
-
-        class uncounted:
-            def __enter__(self):
-                self.before = _lib.launches()
-
-            def __exit__(self, *exc):
-                for k, v in _lib.launches().items():
-                    held[k] = held.get(k, 0) + v - self.before.get(k, 0)
         _lib.reset_launches()
         t0 = time.perf_counter()
         c0 = sess.init_state({"state": state})
@@ -2434,8 +2493,8 @@ def phase8(torch, dev, workdir: Path) -> dict:
             t0 = time.perf_counter()
             commits.append(sess.run("train"))
             t_cell = time.perf_counter() - t0
-            with uncounted():
-                _, pm = plain_fn(plain, batches[i])
+            with uncounted(held):
+                pm = plain_fn(plain, batches[i])[1]
             loss, ploss = sess.ns["metrics/loss"], float(pm["loss"])
             flat_s = images(sess.ns.get_tree("state/params"))
             flat_p = images(plain["params"])
@@ -2474,7 +2533,7 @@ def phase8(torch, dev, workdir: Path) -> dict:
                    if isinstance(sess.ns[n], DTensor) else sess.ns[n]
                    for n in sess.ns.names()
                    if isinstance(sess.ns[n], torch.Tensor)}
-        with uncounted():
+        with uncounted(held):
             rc = ref.init_state(tensors)
         bad, n_keys, n_bytes = [], 0, 0
         for n in tensors:
@@ -2642,7 +2701,7 @@ def phase9(torch, dev, workdir: Path) -> dict:
     from repro_torch.launch.mesh import init_file_group, make_local_mesh
     from repro_torch.models import lm
     from repro_torch.models.config import get_config
-    from repro_torch.optim.adamw import tree_map
+    from repro_torch.optim.adamw import tree_leaves, tree_map
     from repro_torch.sharding.rules import (ShardingRules, distribute_tree,
                                             shard_caches)
     from repro_torch.train import step as step_lib
@@ -2689,22 +2748,21 @@ def phase9(torch, dev, workdir: Path) -> dict:
             return lg.full_tensor()
 
         serve_step = step_lib.make_decode_step(cfg)
+        graphed = step_lib.GraphedDecodeStep(cfg)
 
         def sharded_step(_params, caches, bt):
+            # the path: the sharded step replayed from its CUDA graph
+            nxt, caches = graphed(dparams, caches,
+                                  {**bt, "tokens": dtok(bt["tokens"])})
+            return nxt.full_tensor(), caches
+
+        def eager_step(_params, caches, bt):
             nxt, caches = serve_step(dparams, caches,
                                      {**bt, "tokens": dtok(bt["tokens"])})
             return nxt.full_tensor(), caches
 
         prefill_step = step_lib.make_prefill_step(cfg)
         held: dict = {}
-
-        class uncounted:
-            def __enter__(self):
-                self.before = _lib.launches()
-
-            def __exit__(self, *exc):
-                for k, v in _lib.launches().items():
-                    held[k] = held.get(k, 0) + v - self.before.get(k, 0)
 
         def prefill(ns):
             t0 = time.perf_counter()
@@ -2722,13 +2780,17 @@ def phase9(torch, dev, workdir: Path) -> dict:
             err = torch.zeros((), device=dev)
             tok = prompts[:, :1]
             for t in range(plen):
-                lg = sharded_logits(caches, tok, t)
+                lg, nxt, _ = graphed.with_logits(
+                    dparams, caches, {"tokens": dtok(tok), "index": t})
+                lg = lg.full_tensor()
                 err = torch.maximum(err, (lg[:, 0] - logits[:, t]).abs()
                                     .max())
-                nxt = lg[..., :vocab].argmax(-1).to(torch.int32)
-                tok = prompts[:, t + 1:t + 2] if t + 1 < plen else nxt
+                tok = prompts[:, t + 1:t + 2] if t + 1 < plen \
+                    else nxt.full_tensor()
             torch.cuda.synchronize()
             rec["decode_prefill_s"] = time.perf_counter() - t0
+            rec["decode_prefill_captures"] = graphed.captures
+            rec["decode_prefill_capture_s"] = graphed.capture_s
             rec["prefill_decode_max_abs_err"] = float(err)
             ns.set_tree("caches", caches)
             ns["last_tok"] = tok
@@ -2748,36 +2810,47 @@ def phase9(torch, dev, workdir: Path) -> dict:
             torch.cuda.synchronize()
 
         def compare(ns):
-            # the sharded step against the plain graphed step, teacher-
-            # forced from the same cache values; one step's collectives
+            # the graphed sharded step against the eager sharded step on a
+            # copy of the same caches (bit for bit) and against the plain
+            # graphed step on plain copies (the bf16 bound), teacher-
+            # forced; the eager step's collectives in one step
             caches = ns.get_tree("caches")
-            with uncounted():
+            eager_caches = tree_map(lambda x: x.clone(), caches)
+            with uncounted(held):
                 plain = tree_map(lambda x: global_image(x).clone(), caches)
             toks = torch.randint(0, vocab, (b, SHARD_COMPARE),
                                  dtype=torch.int32, device=dev,
                                  generator=torch.Generator(device=dev)
                                  .manual_seed(9))
-            graphed = step_lib.GraphedDecodeStep(cfg)
+            plain_graphed = step_lib.GraphedDecodeStep(cfg)
             pos, err, t0 = ns["pos"], 0.0, time.perf_counter()
+            same = True
             for t in range(SHARD_COMPARE):
                 tok = toks[:, t:t + 1]
+                got, _, _ = graphed.with_logits(
+                    dparams, caches, {"tokens": dtok(tok), "index": pos + t})
+                got = got.full_tensor()
                 if t == 0:
                     comm = CommDebugMode()
                     with comm:
-                        got = sharded_logits(caches, tok, pos + t)
+                        eager = sharded_logits(eager_caches, tok, pos + t)
                     rec["step_all_reduce"] = sum(
                         v for k, v in comm.get_comm_counts().items()
                         if str(k).endswith("all_reduce"))
                 else:
-                    got = sharded_logits(caches, tok, pos + t)
-                with uncounted():
-                    want, _, _ = graphed.with_logits(
+                    eager = sharded_logits(eager_caches, tok, pos + t)
+                same = same and bool(torch.equal(got, eager))
+                with uncounted(held):
+                    want, _, _ = plain_graphed.with_logits(
                         params, plain, {"tokens": tok, "index": pos + t})
                 err = max(err, float((got - want).abs().max()))
             torch.cuda.synchronize()
             rec["compare_s"] = time.perf_counter() - t0
+            rec["graphed_equals_eager"] = same and all(
+                torch.equal(x.to_local(), y.to_local()) for x, y in
+                zip(tree_leaves(caches), tree_leaves(eager_caches)))
             rec["sharded_vs_plain_max_abs_err"] = err
-            rec["plain_graph_captures"] = graphed.captures
+            rec["plain_graph_captures"] = plain_graphed.captures
             ns["pos"] = pos + SHARD_COMPARE
 
         sess = KishuSession(open_store(f"dir://{workdir}/shard_cas"),
@@ -2837,7 +2910,7 @@ def phase9(torch, dev, workdir: Path) -> dict:
         ref = KishuSession(open_store(f"dir://{workdir}/plain_cas"),
                            chunk_bytes=SERVE_CHUNK, device=dev)
         tensors = {n: global_image(sess.ns[n]).clone() for n in names}
-        with uncounted():
+        with uncounted(held):
             rc = ref.init_state(tensors)
         bad, n_keys, n_bytes = [], 0, 0
         for n in names:
@@ -2883,11 +2956,16 @@ def phase9(torch, dev, workdir: Path) -> dict:
         # prefix; the last rollback leads to the comparison
         for flavor in (1, 2, 1):
             t0 = time.perf_counter()
+            cap0, cap_s0 = graphed.captures, graphed.capture_s
             sess.run("generate", n=gen, flavor=flavor)
             torch.cuda.synchronize()
+            cap_s = graphed.capture_s - cap_s0
             gens.append({"flavor": flavor, "s": time.perf_counter() - t0,
                          "exec_s": sess.last_run.exec_s,
-                         "ms_per_step": 1e3 * sess.last_run.exec_s / gen})
+                         "captures": graphed.captures - cap0,
+                         "capture_s": cap_s,
+                         "ms_per_step": 1e3 * (sess.last_run.exec_s - cap_s)
+                         / gen})
             got = sess.ns["generated"]
             check(tuple(got.shape) == (b, gen) and int(got.max()) < vocab
                   and int(got.min()) >= 0,
@@ -2905,6 +2983,7 @@ def phase9(torch, dev, workdir: Path) -> dict:
         check(not torch.equal(tokens[1], tokens[2]),
               "phase9: flavors 1 and 2 generated the same tokens")
         rec["rollbacks"], rec["generates"] = rollbacks, gens
+        rec["generate_ms_per_step"] = [g["ms_per_step"] for g in gens]
         del snap1
 
         # the sharded step against the plain graphed step, from the prefix
@@ -2916,6 +2995,14 @@ def phase9(torch, dev, workdir: Path) -> dict:
         check(rec["step_all_reduce"] == 3 * SHARD_LAYERS,
               f"phase9: {rec['step_all_reduce']} all-reduces in a sharded "
               f"step, want 3 in each of {SHARD_LAYERS} attention layers")
+        check(rec["graphed_equals_eager"], "phase9: the graphed sharded "
+              "step differs from the eager sharded step (logits or caches)")
+        # one capture for the whole phase: the rollbacks patch every cache
+        # leaf in place, so the graph's addresses stay live
+        rec["captures"], rec["capture_s"] = graphed.captures, \
+            graphed.capture_s
+        check(graphed.captures == 1, f"phase9: {graphed.captures} captures "
+              f"of the sharded step, want 1 (a rollback recaptured)")
         sess.close()
         rec["launches"] = {k: v - held.get(k, 0)
                            for k, v in _lib.launches().items()}
@@ -2923,49 +3010,443 @@ def phase9(torch, dev, workdir: Path) -> dict:
         missing = [k for k in SHARD_PATH_KERNELS if rec["launches"][k] <= 0]
         check(not missing, f"phase9: kernels never launched on the sharded "
                            f"path: {missing}")
-        # the card's busy share in a sharded (eager, host-bound) step
-        rec["decode_profile"] = profile_decode(torch, sharded_step, None,
-                                               new_caches(), prompts[:, :1],
-                                               5)
+        # the card's busy share in a sharded step: the graph (a capture of
+        # its own, on caches of their own) and the eager step
+        profiled = step_lib.GraphedDecodeStep(cfg)
+
+        def profiled_step(_params, caches, bt):
+            nxt, caches = profiled(dparams, caches,
+                                   {**bt, "tokens": dtok(bt["tokens"])})
+            return nxt.full_tensor(), caches
+        rec["decode_profile"] = {
+            "graph": profile_decode(torch, profiled_step, None, new_caches(),
+                                    prompts[:, :1], 20),
+            "eager": profile_decode(torch, eager_step, None, new_caches(),
+                                    prompts[:, :1], 5)}
     finally:
         dist.destroy_process_group()
     rec["peak_allocated"] = torch.cuda.max_memory_allocated()
     rec["peak_reserved"] = torch.cuda.max_memory_reserved()
     rec["s"] = time.perf_counter() - t_all
-    prof = rec["decode_profile"]
     print(f"phase9 {cfg.name}, first {SHARD_LAYERS} of 32 layers, bf16 on a "
           f"(1, 1) NCCL mesh: caches {rec['cache_bytes']} bytes, "
           f"placements {rec['cache_placements']}", flush=True)
     print(f"phase9 sharded prefill {rec['prefill_step_s']:.3f} s (flash "
-          f"{rec['prefill_step_routes']}); sharded decode over the "
-          f"{plen}-token prompt {rec['decode_prefill_s']:.3f} s, logits "
+          f"{rec['prefill_step_routes']}); graphed sharded decode over "
+          f"the {plen}-token prompt {rec['decode_prefill_s']:.3f} s "
+          f"(capture {rec['decode_prefill_capture_s']:.3f} s), logits "
           f"max abs diff {rec['prefill_decode_max_abs_err']:.4f} (bound "
           f"{logit_bound:.4f})", flush=True)
     print(f"phase9 prefix commit = plain commit: "
           f"{rec['same_as_plain']['chunks']} chunk keys, "
           f"{rec['same_as_plain']['bytes']} bytes", flush=True)
     for i, (g, r) in enumerate(zip(rec["generates"], rec["rollbacks"])):
-        print(f"phase9 generate flavor {g['flavor']}: {g['ms_per_step']:.2f}"
-              f" ms a step; rollback {i} to the prefix: {r['s']:.3f} s, "
+        print(f"phase9 generate flavor {g['flavor']}: {g['ms_per_step']:.3f}"
+              f" ms a step, {g['captures']} captures; rollback {i} to the "
+              f"prefix: {r['s']:.3f} s, "
               f"exact on the local shards (block_diff {r['verify_s']:.3f} "
               f"s), {r['covs_patched']} patched ({r['chunks_patched']} "
               f"chunks), {r['covs_loaded']} loaded", flush=True)
-    print(f"phase9 sharded step against the plain graphed step over "
-          f"{SHARD_COMPARE} steps: max abs diff "
-          f"{rec['sharded_vs_plain_max_abs_err']:.5f} (bound "
+    print(f"phase9 graphed sharded step over {SHARD_COMPARE} teacher-forced "
+          f"steps: equal to the eager sharded step bit for bit "
+          f"{rec['graphed_equals_eager']}; against the plain graphed step "
+          f"max abs diff {rec['sharded_vs_plain_max_abs_err']:.5f} (bound "
           f"{logit_bound:.4f}); {rec['step_all_reduce']} all-reduces in one "
-          f"step", flush=True)
-    print(f"phase9 decode profile, sharded eager: {prof['wall_ms']:.3f} ms a "
-          f"step on the host clock, {prof['kernel_ms']:.3f} ms of kernels "
-          f"({prof['kernels']:.0f} launches a step), busy share "
-          f"{prof['busy_share']:.3f}; largest: {prof['top'][:3]}",
-          flush=True)
+          f"eager step; {rec['captures']} capture(s) in the phase, "
+          f"{rec['capture_s']:.3f} s", flush=True)
+    for name, prof in rec["decode_profile"].items():
+        print(f"phase9 decode profile, sharded {name}: {prof['wall_ms']:.3f} "
+              f"ms a step on the host clock, {prof['kernel_ms']:.3f} ms of "
+              f"kernels ({prof['kernels']:.0f} launches a step), busy share "
+              f"{prof['busy_share']:.3f}; largest: {prof['top'][:3]}",
+              flush=True)
     print(f"phase9 launches {rec['launches']} (comparisons with plain "
           f"tensors, not counted: {rec['comparison_launches']}), "
           f"{rec['s']:.1f} s, peak allocated {rec['peak_allocated']} "
           f"reserved {rec['peak_reserved']}", flush=True)
     check(rec["s"] < PHASE9_LIMIT_S,
           f"phase9 took {rec['s']:.1f} s, over {PHASE9_LIMIT_S:.0f} s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: Cell K, training where the reference trains (one card)
+# ---------------------------------------------------------------------------
+
+def manifests_of(sess, cid: str, names) -> dict:
+    """{name: (chunk keys, detection hashes, meta)} of each co-variable in
+    commit ``cid``: equal keys are equal bytes (blake2b of the content)."""
+    from repro_torch.core.graph import key_str
+    out = {}
+    for n in names:
+        m = sess.graph.manifest_of(
+            (n,), sess.graph.nodes[cid].state_index[key_str((n,))])
+        out[n] = ([c["key"] for c in m["base"]["chunks"]],
+                  m["base"]["det_hashes"], m["base"]["meta"])
+    return out
+
+
+def same_as_store(ref):
+    """A store that keeps no chunk: each chunk put into it is held against
+    ``ref``'s chunk of the same key (their logical bytes), so a second
+    session's commit of the same values can be compared with a first's
+    without a second copy of the state in memory."""
+    from repro_torch.core import MemoryStore
+    from repro_torch.core.chunkstore import ChunkMissingError, decode_chunk
+
+    class SameAs(MemoryStore):
+        def __init__(self):
+            super().__init__()
+            self.checked, self.checked_bytes, self.differ = set(), 0, []
+
+        def put_chunk(self, key, data):
+            data = decode_chunk(bytes(data))
+            if key not in self.checked:
+                self.checked_bytes += len(data)
+            self.checked.add(key)
+            try:
+                same = ref.get_chunk(key) == data
+            except ChunkMissingError:
+                same = False
+            if not same:
+                self.differ.append(key)
+            return True
+    return SameAs()
+
+
+def host_snapshot(torch, ns) -> dict:
+    """Every tensor of ``ns`` copied to host memory (a DTensor's local
+    shard), so a later exactness check costs the card no second copy."""
+    from torch.distributed.tensor import DTensor
+    return {n: (ns[n].to_local() if isinstance(ns[n], DTensor)
+                else ns[n]).to("cpu", copy=True)
+            for n in ns.names() if isinstance(ns[n], torch.Tensor)}
+
+
+def phase10_moe(torch, dev, workdir: Path, held: dict) -> dict:
+    """Cell K (a): phi3.5-moe-42b-a6.6b at full width, its first
+    TRAIN_MOE_LAYERS of 32 layers, bf16 params and float32 moments, as
+    DTensors under ShardingRules on a one-rank NCCL (1, 1) mesh; two
+    sharded train steps as Kishu cells (MemoryStore) against the plain
+    step on a plain copy; the DTensor commit against the plain commit of
+    the same values; a checkout back to the first step's commit, exact
+    under block_diff.  Launches of the comparisons go to ``held``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.core import KishuSession, MemoryStore
+    from repro_torch.core.namespace import flatten_tree
+    from repro_torch.launch.dryrun import opt_config
+    from repro_torch.launch.mesh import init_file_group, make_local_mesh
+    from repro_torch.models.config import get_config
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.sharding import context as shctx
+    from repro_torch.sharding.rules import ShardingRules, shard_train_state
+    from repro_torch.train import step as step_lib
+
+    rec: dict = {}
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config("phi3.5-moe-42b-a6.6b")
+    cfg = full.replace(n_layers=TRAIN_MOE_LAYERS)
+    opt = dataclasses.replace(opt_config(full), lr=1e-3)
+    init_file_group("nccl", 0, 1, str(workdir / "pg_store"))
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "phase10 moe: no one-rank NCCL group")
+        mesh = make_local_mesh(model=1)
+        rules = ShardingRules(cfg, mesh)
+        plain = step_lib.init_train_state(cfg, 0, opt, device=dev)
+        state = shard_train_state(step_lib.init_train_state(cfg, 0, opt,
+                                                            device=dev),
+                                  rules)
+        n_params = sum(t.numel() for t in tree_leaves(plain["params"]))
+        rec.update(arch=cfg.name, layers=TRAIN_MOE_LAYERS, params=n_params,
+                   moment_dtype=opt.moment_dtype, batch=TRAIN_BATCH,
+                   seq=TRAIN_SEQ, state_bytes=sum(
+                       t.numel() * t.element_size()
+                       for t in tree_leaves(plain)))
+        print(f"phase10 {cfg.name}, first {TRAIN_MOE_LAYERS} of 32 layers: "
+              f"{n_params} params (bf16, {opt.moment_dtype} moments, "
+              f"{rec['state_bytes']} bytes of state) on a "
+              f"{tuple(mesh.shape)} NCCL mesh", flush=True)
+        hidden = (mesh, rules.hidden_spec(TRAIN_BATCH, TRAIN_SEQ))
+        sharded_fn = step_lib.make_train_step(cfg, opt,
+                                              hidden_sharding=hidden)
+        plain_fn = step_lib.make_train_step(cfg, opt)
+        g = torch.Generator(device=dev).manual_seed(13)
+        batches = [{k: torch.randint(0, cfg.vocab_size,
+                                     (TRAIN_BATCH, TRAIN_SEQ), device=dev,
+                                     generator=g, dtype=torch.int32)
+                    for k in ("tokens", "labels")} for _ in range(2)]
+        sess = KishuSession(MemoryStore(), chunk_bytes=CB, device=dev,
+                            group=dist.group.WORLD)
+        step_no = {"i": 0}
+
+        def train(ns):
+            bt = batches[step_no["i"]]
+            bpl = rules.batch_spec(bt)
+            with shctx.moe_weight_gather(rules):
+                _, m = sharded_fn(ns.get_tree("state"), {
+                    k: distribute_tensor(v, mesh, list(bpl[k]))
+                    for k, v in bt.items()})
+            ns["metrics/loss"] = float(m["loss"].full_tensor())
+        sess.register("train", train)
+
+        def whole(x):
+            # on a one-rank mesh the local shard is the whole tensor
+            if isinstance(x, DTensor):
+                check(tuple(x.to_local().shape) == tuple(x.shape),
+                      "phase10 moe: a local shard is not the whole tensor")
+                return x.to_local()
+            return x
+
+        t0 = time.perf_counter()
+        c0 = sess.init_state({"state": state})
+        rec["attach_s"] = time.perf_counter() - t0
+        del state       # the session holds it; a checkout replaces it
+        print(f"phase10 moe attach {rec['attach_s']:.2f} s", flush=True)
+        names = [n for n in sess.ns.names()
+                 if isinstance(sess.ns[n], torch.Tensor)]
+        rec["dtensor_covs"] = sum(isinstance(sess.ns[n], DTensor)
+                                  for n in names)
+        commits, steps, snap1 = [c0], [], None
+        for i in range(2):
+            step_no["i"] = i
+            old_s = {k: whole(v).clone() for k, v in
+                     flatten_tree(sess.ns.get_tree("state/params")).items()}
+            old_p = {k: v.clone() for k, v in
+                     flatten_tree(plain["params"]).items()}
+            t0 = time.perf_counter()
+            commits.append(sess.run("train"))
+            t_cell = time.perf_counter() - t0
+            exec_s = sess.last_run.exec_s
+            with uncounted(held):
+                pm = plain_fn(plain, batches[i])[1]
+            loss, ploss = sess.ns["metrics/loss"], float(pm["loss"])
+            new_s = flatten_tree(sess.ns.get_tree("state/params"))
+            err, rel, same = 0.0, 0.0, True
+            for k, p in flatten_tree(plain["params"]).items():
+                x, y = whole(new_s[k]).float(), p.float()
+                err = max(err, float((x - y).abs().max()))
+                same = same and bool(torch.equal(x, y))
+                dp = y - old_p[k].float()
+                off = float((x - old_s[k].float() - dp).norm())
+                den = float(dp.norm())
+                rel = max(rel, off / den if den else
+                          (0.0 if off == 0 else float("inf")))
+            del old_s, old_p, new_s
+            steps.append({"cell_s": t_cell, "exec_s": exec_s, "loss": loss,
+                          "plain_loss": ploss, "max_param_err": err,
+                          "max_delta_rel_err": rel, "bit_identical": same})
+            print(f"phase10 moe step {i + 1}: sharded loss {loss:.6f}, "
+                  f"plain {ploss:.6f}, params max err {err:.3g}, change "
+                  f"against the plain change {rel:.3g} of its norm, "
+                  f"bit-identical {same}, cell {t_cell:.2f} s (step and "
+                  f"commit {exec_s:.2f} s)", flush=True)
+            check(abs(loss - ploss) < 1e-3 and err <= 2e-2
+                  and rel <= DELTA_TOL,
+                  f"phase10 moe step {i + 1}: sharded against plain "
+                  f"{steps[-1]}")
+            if i == 0:
+                t0 = time.perf_counter()
+                snap1 = host_snapshot(torch, sess.ns)
+                rec["snapshot_s"] = time.perf_counter() - t0
+        rec["steps"] = steps
+        check(all(isinstance(sess.ns[n], DTensor) for n in names
+                  if n.startswith("state/params")),
+              "phase10 moe: a DTensor co-variable lost its placements")
+
+        # the trained state committed as plain tensors: same keys, hashes,
+        # meta and logical bytes
+        t0 = time.perf_counter()
+        ref_store = same_as_store(sess.store)
+        ref = KishuSession(ref_store, chunk_bytes=CB, device=dev)
+        with uncounted(held):
+            rc = ref.init_state({n: whole(sess.ns[n]) for n in names})
+        mine = manifests_of(sess, commits[-1], names)
+        theirs = manifests_of(ref, rc, names)
+        ref.close()
+        bad = sorted(n for n in names if mine[n] != theirs[n])
+        n_keys = sum(len(mine[n][0]) for n in names)
+        distinct = {k for n in names for k in mine[n][0]}
+        rec["same_as_plain"] = {"chunks": n_keys, "distinct": len(distinct),
+                                "chunks_checked": len(ref_store.checked),
+                                "bytes": ref_store.checked_bytes,
+                                "differ": bad[:4],
+                                "bytes_differ": ref_store.differ[:4],
+                                "s": time.perf_counter() - t0}
+        check(not bad and not ref_store.differ and n_keys > 0
+              and ref_store.checked == distinct,
+              f"phase10 moe: the commit differs from the plain commit of "
+              f"the same values: {rec['same_as_plain']}")
+        print(f"phase10 moe commit = plain commit: {n_keys} chunk keys, "
+              f"{ref_store.checked_bytes} bytes", flush=True)
+        del plain
+
+        # a checkout back to the first step's commit
+        t0 = time.perf_counter()
+        st = sess.checkout(commits[1])
+        rec["checkout_s"] = time.perf_counter() - t0
+        rec["checkout"] = {"covs_patched": st.covs_patched,
+                           "covs_loaded": st.covs_loaded,
+                           "bytes_loaded": st.bytes_loaded}
+        rec["verify_checkout_s"] = verify_exact(
+            torch, sess.ns, snap1, "phase10 moe checkout")
+        check(all(isinstance(sess.ns[n], DTensor) for n in names
+                  if n.startswith("state/params")),
+              "phase10 moe checkout: DTensors lost")
+        del snap1
+        sess.close()
+    finally:
+        dist.destroy_process_group()
+    rec["peak_allocated"] = torch.cuda.max_memory_allocated()
+    rec["peak_reserved"] = torch.cuda.max_memory_reserved()
+    rec["s"] = time.perf_counter() - t_all
+    print(f"phase10 moe: attach {rec['attach_s']:.2f} s, checkout to step 1 "
+          f"{rec['checkout_s']:.2f} s ({rec['checkout']}), exact "
+          f"(block_diff {rec['verify_checkout_s']:.2f} s); {rec['s']:.1f} "
+          f"s, peak allocated {rec['peak_allocated']} reserved "
+          f"{rec['peak_reserved']}", flush=True)
+    return rec
+
+
+def phase10_vlm(torch, dev) -> dict:
+    """Cell K (b): qwen2-vl-72b at full width, its first TRAIN_VLM_LAYERS
+    of 80 layers, bf16 params and bf16 moments, plain tensors; one train
+    cell from a seeded batch of frontend ``embeds`` and ``positions_thw``
+    (MemoryStore): ``embed``'s gradient is zero (its moments stay zero)
+    and its new value is the decay-only AdamW update; a rollback to the
+    parent is exact under block_diff and the cell replayed from there
+    commits the same chunk keys as the first run, every co-variable."""
+    from repro_torch.core import KishuSession, MemoryStore
+    from repro_torch.launch.dryrun import opt_config
+    from repro_torch.models.config import get_config
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as step_lib
+
+    rec: dict = {}
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config("qwen2-vl-72b")
+    cfg = full.replace(n_layers=TRAIN_VLM_LAYERS)
+    opt = dataclasses.replace(opt_config(full), lr=1e-3)
+    state = step_lib.init_train_state(cfg, 0, opt, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    rec.update(arch=cfg.name, layers=TRAIN_VLM_LAYERS, params=n_params,
+               moment_dtype=opt.moment_dtype, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, state_bytes=sum(
+                   t.numel() * t.element_size() for t in tree_leaves(state)))
+    print(f"phase10 {cfg.name}, first {TRAIN_VLM_LAYERS} of 80 layers: "
+          f"{n_params} params (bf16, {opt.moment_dtype} moments, "
+          f"{rec['state_bytes']} bytes of state)", flush=True)
+    g = torch.Generator(device=dev).manual_seed(14)
+    t = torch.arange(TRAIN_SEQ, device=dev, dtype=torch.int32)
+    thw = torch.stack([t // 64, (t // 8) % 8, t % 8], dim=-1)
+    batch = {"embeds": torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model),
+                                   device=dev, generator=g)
+             .to(torch.bfloat16),
+             "positions_thw": thw.expand(TRAIN_BATCH, TRAIN_SEQ, 3)
+             .contiguous(),
+             "labels": torch.randint(0, cfg.vocab_size,
+                                     (TRAIN_BATCH, TRAIN_SEQ), device=dev,
+                                     generator=g, dtype=torch.int32)}
+    train_fn = step_lib.make_train_step(cfg, opt)
+    sess = KishuSession(MemoryStore(), chunk_bytes=CB, device=dev)
+
+    def train(ns):
+        _, m = train_fn(ns.get_tree("state"), batch)
+        ns["metrics/loss"] = float(m["loss"])
+    sess.register("train", train)
+    try:
+        t0 = time.perf_counter()
+        c0 = sess.init_state({"state": state})
+        rec["attach_s"] = time.perf_counter() - t0
+        del state       # the session holds it; a checkout replaces it
+        t0 = time.perf_counter()
+        snap0 = host_snapshot(torch, sess.ns)
+        rec["snapshot_s"] = time.perf_counter() - t0
+        e0 = sess.ns["state/params/embed"].clone()
+        t0 = time.perf_counter()
+        c1 = sess.run("train")
+        rec["train_s"] = time.perf_counter() - t0
+        rec["train_exec_s"] = sess.last_run.exec_s
+        rec["loss"] = sess.ns["metrics/loss"]
+        names = sorted(n for n in sess.ns.names()
+                       if isinstance(sess.ns[n], torch.Tensor))
+        first = manifests_of(sess, c1, names)
+        # a zero gradient leaves both moments zero (clip > 0): exact
+        mu, nu = sess.ns["state/opt/mu/embed"], sess.ns["state/opt/nu/embed"]
+        rec["embed_moments_zero"] = not bool(mu.any()) and not bool(nu.any())
+        lr = torch.tensor(opt.lr, dtype=torch.float32, device=dev)
+        decayed = (e0.float() * (1 - lr * opt.weight_decay)).to(e0.dtype)
+        rec["embed_decay_only"] = bool(torch.equal(
+            sess.ns["state/params/embed"], decayed))
+        del e0, decayed
+        check(rec["embed_moments_zero"] and rec["embed_decay_only"],
+              f"phase10 vlm: embed's gradient is not zero or its update is "
+              f"not the decay alone ({rec['embed_moments_zero']}, "
+              f"{rec['embed_decay_only']})")
+        check(math.isfinite(rec["loss"]), f"phase10 vlm loss {rec['loss']}")
+
+        t0 = time.perf_counter()
+        st = sess.checkout(c0)
+        rec["rollback_s"] = time.perf_counter() - t0
+        rec["rollback"] = {"covs_patched": st.covs_patched,
+                           "covs_loaded": st.covs_loaded,
+                           "bytes_loaded": st.bytes_loaded}
+        rec["verify_rollback_s"] = verify_exact(
+            torch, sess.ns, snap0, "phase10 vlm rollback")
+        del snap0
+        t0 = time.perf_counter()
+        c2 = sess.run("train")
+        rec["replay_s"] = time.perf_counter() - t0
+        again = manifests_of(sess, c2, names)
+        bad = sorted(n for n in names if again[n] != first[n])
+        rec["replay_differ"] = bad[:4]
+        rec["replay_chunks"] = sum(len(first[n][0]) for n in names)
+        check(not bad and sess.ns["metrics/loss"] == rec["loss"],
+              f"phase10 vlm: the replayed train cell differs: {bad[:4]}, "
+              f"loss {sess.ns['metrics/loss']} against {rec['loss']}")
+    finally:
+        sess.close()
+    rec["peak_allocated"] = torch.cuda.max_memory_allocated()
+    rec["peak_reserved"] = torch.cuda.max_memory_reserved()
+    rec["s"] = time.perf_counter() - t_all
+    print(f"phase10 vlm: loss {rec['loss']:.6f}; embed gradient zero, "
+          f"update decay-only; attach {rec['attach_s']:.2f} s, train cell "
+          f"{rec['train_s']:.2f} s, rollback {rec['rollback_s']:.2f} s "
+          f"({rec['rollback']}, exact: block_diff "
+          f"{rec['verify_rollback_s']:.2f} s), replay {rec['replay_s']:.2f} "
+          f"s with the same {rec['replay_chunks']} chunk keys; "
+          f"{rec['s']:.1f} s, peak allocated {rec['peak_allocated']} "
+          f"reserved {rec['peak_reserved']}", flush=True)
+    return rec
+
+
+def phase10(torch, dev, workdir: Path) -> dict:
+    """Cell K: training where the JAX package trains and the port raised
+    before — through MoE layers on DTensors (:func:`phase10_moe`) and from
+    a frontend's embeddings (:func:`phase10_vlm`).  Launch counts are read
+    from both parts together, the comparisons' taken out."""
+    from repro_torch.kernels import _lib
+    t_all = time.perf_counter()
+    held: dict = {}
+    _lib.reset_launches()
+    rec = {"moe": phase10_moe(torch, dev, workdir, held)}
+    free_card(torch)
+    rec["vlm"] = phase10_vlm(torch, dev)
+    rec["moe_s"], rec["vlm_s"] = rec["moe"]["s"], rec["vlm"]["s"]
+    rec["launches"] = {k: v - held.get(k, 0)
+                       for k, v in _lib.launches().items()}
+    rec["comparison_launches"] = held
+    rec["s"] = time.perf_counter() - t_all
+    missing = [k for k in TRAIN_PATH_KERNELS if rec["launches"][k] <= 0]
+    print(f"phase10 launches {rec['launches']} (comparisons with plain "
+          f"tensors, not counted: {held}), {rec['s']:.1f} s", flush=True)
+    check(not missing, f"phase10: kernels never launched on the training "
+                       f"path: {missing}")
+    check(rec["s"] < PHASE10_LIMIT_S,
+          f"phase10 took {rec['s']:.1f} s, over {PHASE10_LIMIT_S:.0f} s")
     return rec
 
 
@@ -3118,7 +3599,8 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     for phase, fn in (("phase7", phase7), ("phase7b", phase7b),
                       ("phase7c", phase7c), ("phase7d", phase7d),
-                      ("phase8", phase8), ("phase9", phase9)):
+                      ("phase8", phase8), ("phase9", phase9),
+                      ("phase10", phase10)):
         free_card(torch)
         workdir = Path(tempfile.mkdtemp(prefix=f"kishu_smoke_{phase}_"))
         try:

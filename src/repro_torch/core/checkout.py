@@ -468,8 +468,12 @@ class StateLoader:
         if offsets and offsets[-1] + int(tgt_chunks[-1]["n"]) != nbytes:
             return None
         dirty = delta_mod.dirty_indices(hashes_hex(live_det), tgt_det)
-        if len(dirty) == len(tgt_det):
-            return None                 # fully diverged: full load is cheaper
+        if len(dirty) == len(tgt_det) and (
+                len(dirty) > 1 or not isinstance(base, torch.Tensor)):
+            # fully diverged: a full load is cheaper.  A tensor of one chunk
+            # moves that chunk either way, and patched it keeps its storage
+            # (a captured decode graph reads a cache's index there)
+            return None
 
         if isinstance(base, DTensor):
             # a DTensor patches its local shard: only the dirty chunks in

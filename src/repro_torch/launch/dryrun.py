@@ -181,7 +181,9 @@ def calibration_points(cfg) -> list:
     return [(with_stage_counts(cfg, c), c) for c in pts]
 
 
-def _opt_cfg(cfg) -> AdamWConfig:
+def opt_config(cfg) -> AdamWConfig:
+    """The AdamW config of ``cfg``'s train cells, as the JAX package's dry
+    run picks it: bf16 moments above 5e10 total params, else float32."""
     return AdamWConfig(
         moment_dtype="bfloat16" if cfg.param_counts()["total"] > 5e10
         else "float32")
@@ -200,7 +202,7 @@ def build_cell(arch: str, shape: str, mesh, *, cfg_override=None,
     batch = _dtree(spec["batch"], mesh, bshard)
 
     if spec["kind"] == "train":
-        opt_cfg = _opt_cfg(cfg)
+        opt_cfg = opt_config(cfg)
         state = abstract(step_lib.init_train_state, cfg, 0, opt_cfg,
                          device="cpu")
         pshard = rules.param_shardings(state["params"])

@@ -174,15 +174,18 @@ def _moe(p: dict, cfg: ArchConfig, x: torch.Tensor,
         .sum(dim=1).to(x.dtype)
 
     if m.n_shared_experts:
+        xs = x if mesh is None else _replicated(x, mesh)
         out = out + layers.whole(
-            layers.mlp_forward(p["shared"], x)).reshape(t, d)
+            layers.mlp_forward(p["shared"], xs)).reshape(t, d)
     return out.reshape(b, s, d)
 
 
 def aux_load_balance_loss(router_w: torch.Tensor, x_flat: torch.Tensor,
                           mcfg: MoEConfig) -> torch.Tensor:
     """Switch-style load-balancing auxiliary loss (float32 scalar; over
-    the gathered tokens for DTensors, as :func:`moe_forward` routes)."""
+    the gathered tokens for DTensors, as :func:`moe_forward` routes, and
+    then a replicated DTensor)."""
+    mesh = x_flat.device_mesh if isinstance(x_flat, DTensor) else None
     x_flat, router_w = layers.whole(x_flat), layers.whole(router_w)
     logits = einsum_f32("td,de->te", x_flat, router_w)
     probs = torch.softmax(logits, dim=-1)
@@ -192,4 +195,5 @@ def aux_load_balance_loss(router_w: torch.Tensor, x_flat: torch.Tensor,
         .index_add_(0, top1, torch.ones_like(top1, dtype=torch.float32)) \
         / x_flat.shape[0]
     frac_probs = probs.mean(dim=0)
-    return mcfg.n_experts * torch.sum(frac_tokens * frac_probs)
+    aux = mcfg.n_experts * torch.sum(frac_tokens * frac_probs)
+    return aux if mesh is None else _replicated(aux, mesh)

@@ -91,21 +91,55 @@ def adamw_update(grads: Any, opt_state: Dict[str, Any], params: Any,
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) \
         if cfg.grad_clip > 0 else f32(1.0)
+    if isinstance(clip, DTensor):   # the blocks below are local shards
+        clip = clip.full_tensor()
     bc1 = 1 - torch.pow(f32(cfg.b1), t)
     bc2 = 1 - torch.pow(f32(cfg.b2), t)
     decay = 1 - lr * cfg.weight_decay
 
-    def upd(g, mu, nu, p):
+    def upd_block(g, mu, nu, p, decayed: bool):
         g32 = g.float() * clip
         mu32 = mu.float() * cfg.b1 + g32 * (1 - cfg.b1)
         nu32 = nu.float() * cfg.b2 + g32.square() * (1 - cfg.b2)
         step = (mu32 / bc1) / (torch.sqrt(nu32 / bc2) + cfg.eps)
         p32 = p.float()
-        if p.ndim >= 2:   # decay matrices only (norms/scalars exempt)
+        if decayed:
             p32 = p32 * decay
         p.copy_(p32 - lr * step)
         mu.copy_(mu32)
         nu.copy_(nu32)
 
+    def upd(g, mu, nu, p):
+        decayed = p.ndim >= 2   # decay matrices only (norms/scalars exempt)
+        for block in _blocks(g, mu, nu, p):
+            upd_block(*block, decayed)
+
     tree_map(upd, grads, opt_state["mu"], opt_state["nu"], params)
     return {"grad_norm": gnorm}
+
+
+# elements a step of the update takes at once: its float32 temporaries
+# (about eight of them) stay near 2 GiB however large the leaf
+UPDATE_BLOCK = 1 << 26
+
+
+def _blocks(g, mu, nu, p):
+    """``(g, mu, nu, p)`` cut into matching flat blocks of at most
+    :data:`UPDATE_BLOCK` elements, for an elementwise update that writes
+    ``mu``, ``nu`` and ``p`` in place.  DTensors of one placement (the
+    gradient is redistributed to its parameter's, the moments share it)
+    give their local shards, on which an elementwise op is what DTensor
+    would run.  The JAX package's update is fused by XLA and holds no
+    float32 copy of a leaf; the blocks bound the port's.  A leaf that is
+    not contiguous, or DTensors placed unalike, go whole."""
+    xs = (g, mu, nu, p)
+    if all(isinstance(x, DTensor) for x in xs) and len(
+            {(x.device_mesh, tuple(x.placements)) for x in xs}) == 1:
+        xs = tuple(x.to_local() for x in xs)
+    n = xs[3].numel()
+    if n <= UPDATE_BLOCK or any(isinstance(x, DTensor) for x in xs) \
+            or not all(x.is_contiguous() for x in xs[1:]):
+        return [xs]
+    flat = (xs[0].reshape(-1),) + tuple(x.view(-1) for x in xs[1:])
+    return [tuple(x[lo:lo + UPDATE_BLOCK] for x in flat)
+            for lo in range(0, n, UPDATE_BLOCK)]

@@ -11,12 +11,14 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch.core.namespace import flatten_tree, unflatten_tree
 from repro_torch.core.session import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
@@ -102,6 +104,36 @@ def make_loss_fn(cfg: ArchConfig, *, moe_aux_coef: float = 0.01,
     return loss_fn
 
 
+def loss_and_grads(loss_fn, params, batch
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any,
+                              List[str]]:
+    """``(total, aux, grads, unused)``: ``loss_fn(params, batch)`` and the
+    gradient of ``total`` for every leaf of ``params``, each on its
+    parameter's placements.  A leaf the loss does not reach (``embed``
+    when the batch carries a frontend's ``embeds`` and the unembedding is
+    untied) gets zeros of its own shape and dtype (a DTensor's on its mesh
+    and placements), the gradient ``jax.grad`` gives it; ``unused`` names
+    those leaves by path."""
+    # detached leaves share the state's storage: autograd sees fresh
+    # leaves, the state's tensors stay plain (no requires_grad)
+    flat = {k: p.detach().requires_grad_(True)
+            for k, p in flatten_tree(params).items()}
+    with torch.enable_grad():
+        total, aux = loss_fn(unflatten_tree(flat), batch)
+        gflat = torch.autograd.grad(total, list(flat.values()),
+                                    allow_unused=True)
+    grads, unused = {}, []
+    for (k, x), g in zip(flat.items(), gflat):
+        if g is None:
+            unused.append(k)
+            g = torch.zeros_like(x)
+        elif isinstance(x, DTensor):
+            g = g.redistribute(x.device_mesh, x.placements)
+        grads[k] = g
+    return total.detach(), {k: v.detach() for k, v in aux.items()}, \
+        unflatten_tree(grads), unused
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
                     microbatches: int = 1, moe_aux_coef: float = 0.01,
                     hidden_sharding=None):
@@ -127,19 +159,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
                            hidden_sharding=hidden_sharding)
 
     def grads_of(params, batch):
-        # detached leaves share the state's storage: autograd sees fresh
-        # leaves, the state's tensors stay plain (no requires_grad)
-        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        with torch.enable_grad():
-            total, aux = loss_fn(leaves, batch)
-            flat = tree_leaves(leaves)
-            gflat = torch.autograd.grad(total, flat)
-        gflat = [g.redistribute(x.device_mesh, x.placements)
-                 if isinstance(x, DTensor) else g
-                 for x, g in zip(flat, gflat)]
-        by_id = {id(x): g for x, g in zip(flat, gflat)}
-        return total.detach(), {k: v.detach() for k, v in aux.items()}, \
-            tree_map(lambda x: by_id[id(x)], leaves)
+        return loss_and_grads(loss_fn, params, batch)[:3]
 
     def accumulated(params, batch):
         if microbatches == 1:
@@ -218,20 +238,45 @@ def make_decode_step(cfg: ArchConfig):
     return serve_step
 
 
-class ShardedCaptureError(TypeError):
-    """:class:`GraphedDecodeStep` was given DTensor leaves: the sharded
-    step is not captured into a CUDA graph, and the graph never falls
-    back to running it eagerly."""
-
-
 # the batch's inputs a graphed step reads from static buffers: token ids,
 # or the precomputed embeddings of a frontend model
 _GRAPH_INPUTS = ("tokens", "embeds")
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _layout(x: torch.Tensor):
+    """A DTensor's mesh and placements; None for a plain tensor."""
+    return (x.device_mesh, tuple(x.placements)) \
+        if isinstance(x, DTensor) else None
+
+
+def _like(x: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """``local`` as a DTensor of ``x``'s mesh, placements, shape and
+    strides where ``x`` is a DTensor; else ``local`` itself."""
+    if not isinstance(x, DTensor):
+        return local
+    return DTensor.from_local(local, x.device_mesh, list(x.placements),
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _settled(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its local shard's pending collective waited on, so that
+    a captured step ends with every collective joined to the stream."""
+    local = _local(x)
+    if isinstance(local, funcol.AsyncCollectiveTensor):
+        return _like(x, local.wait())
+    return x
+
+
 class GraphedDecodeStep:
     """The greedy decode step replayed from a CUDA graph: the port's
-    counterpart of the JAX package's ``jax.jit(make_decode_step(cfg))``.
+    counterpart of the JAX package's ``jax.jit(make_decode_step(cfg))``,
+    plain or sharded (``jax.jit(..., in_shardings=...)``).
 
     ``step(params, caches, batch)`` returns ``(next_token, caches)`` as
     :func:`make_decode_step`'s step does; :meth:`with_logits` also returns
@@ -258,10 +303,18 @@ class GraphedDecodeStep:
       warm-up must not touch the live ones), into a private memory pool per
       graph; the step has no host sync.
 
+    DTensor params and caches (``ShardingRules``, ``shard_caches``) are
+    captured the same way, on their local shards: the key holds each
+    leaf's local shard and its mesh and placements, the static token
+    buffer is a DTensor on the batch's placements and the index a
+    replicated one, and the graph holds the step's collectives (each
+    attention layer's three all-reduces, the logits' gather) as NCCL
+    launches; the warm-up sets up the communicator, which a capture
+    cannot.  Every collective is waited on inside the capture.
+
     A failed capture or replay raises: on CUDA the eager step never runs
-    in the graph's place; DTensor leaves raise
-    :class:`ShardedCaptureError`.  ``captures`` counts captures and
-    ``capture_s`` their seconds, apart from the replayed steps."""
+    in the graph's place.  ``captures`` counts captures and ``capture_s``
+    their seconds, apart from the replayed steps."""
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
@@ -282,55 +335,68 @@ class GraphedDecodeStep:
 
     def _run(self, params, caches, batch, *, logits: bool):
         leaves = tree_leaves(params) + tree_leaves(caches)
-        if any(isinstance(t, DTensor) for t in leaves):
-            raise ShardedCaptureError(
-                "GraphedDecodeStep takes plain tensors: the sharded decode "
-                "step (DTensor params or caches) is not captured; call "
-                "make_decode_step's step")
         inputs = {k: batch[k] for k in _GRAPH_INPUTS if k in batch}
-        if not next(iter(inputs.values())).is_cuda:
+        if not _local(next(iter(inputs.values()))).is_cuda:
             return _greedy_step(self.cfg, params, caches, batch)
-        key = tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()) \
-            + tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.stride())
-                    for t in leaves)
+        key = tuple((k, tuple(v.shape), v.dtype, _layout(v))
+                    for k, v in inputs.items()) \
+            + tuple((_local(t).data_ptr(), tuple(_local(t).shape), t.dtype,
+                     _local(t).stride(), _layout(t)) for t in leaves)
         if key != self._key:
-            self._capture(params, caches, inputs, key)
+            self._capture(params, caches, inputs, leaves, key)
         for k, v in inputs.items():
-            self._inputs[k].copy_(v)
+            _local(self._inputs[k]).copy_(_local(v))
         index = batch["index"]
         if isinstance(index, torch.Tensor):
-            self._index.copy_(index)
+            _local(self._index).copy_(_local(index))
         else:
-            self._index.fill_(int(index))
+            _local(self._index).fill_(int(index))
         self._graph.replay()
-        return (self._logits.clone() if logits else None,
-                self._next.clone())
+        return (self._clone(self._logits) if logits else None,
+                self._clone(self._next))
 
-    def _capture(self, params, caches, inputs, key) -> None:
+    @staticmethod
+    def _clone(x: torch.Tensor) -> torch.Tensor:
+        return _like(x, _local(x).clone())
+
+    def _capture(self, params, caches, inputs, leaves, key) -> None:
         t0 = time.perf_counter()
         # drop the old graph and its outputs, so its pool can be freed
         self._key = self._graph = self._logits = self._next = None
-        dev = next(iter(inputs.values())).device
-        self._inputs = {k: torch.empty(
-            tuple(v.shape), dtype=torch.int32 if k == "tokens" else v.dtype,
-            device=dev).copy_(v) for k, v in inputs.items()}
-        self._index = torch.zeros((), dtype=torch.int32, device=dev)
+        dev = _local(next(iter(inputs.values()))).device
+        self._inputs = {k: _like(v, torch.empty(
+            tuple(_local(v).shape),
+            dtype=torch.int32 if k == "tokens" else v.dtype,
+            device=dev).copy_(_local(v))) for k, v in inputs.items()}
+        index = torch.zeros((), dtype=torch.int32, device=dev)
+        sharded = [t for t in (*inputs.values(), *leaves)
+                   if isinstance(t, DTensor)]
+        if sharded:                     # replicated over the step's mesh
+            mesh = sharded[0].device_mesh
+            index = DTensor.from_local(index, mesh,
+                                       [Replicate()] * mesh.ndim,
+                                       run_check=False)
+        self._index = index
         static = {**self._inputs, "index": self._index}
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             scratch = tree_map(torch.clone, caches)
-            _greedy_step(self.cfg, params, scratch, static)
-            del scratch
+            outs = _greedy_step(self.cfg, params, scratch, static)
+            for x in outs:
+                _settled(x)
+            del scratch, outs
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         # thread_local: the session's pool threads may touch the card (a
-        # pinned copy, an allocation) while a cell captures
+        # pinned copy, an allocation) while a cell captures, and NCCL's
+        # watchdog polls its events
         with torch.no_grad(), torch.cuda.graph(
                 graph, capture_error_mode="thread_local"):
-            self._logits, self._next = _greedy_step(self.cfg, params, caches,
-                                                    static)
+            self._logits, self._next = (
+                _settled(x) for x in _greedy_step(self.cfg, params, caches,
+                                                  static))
         self._graph, self._key = graph, key
         self.captures += 1
         self.capture_s += time.perf_counter() - t0

@@ -861,10 +861,11 @@ def test_graphed_decode_step_equals_eager_bit_for_bit(dev, dtype):
 
 
 def test_graphed_decode_recaptures_after_a_full_load(dev):
-    """A checkout that loads a cache leaf in full (the 0-d-per-unit
-    ``index`` leaf, all of whose bytes differ) builds a new tensor: the
-    graph captures again, and its generation equals the eager step's from
-    the same checkout."""
+    """A checkout that loads a cache leaf in full (K, every chunk of
+    which the generation wrote) builds a new tensor: the graph captures
+    again, and its generation equals the eager step's from the same
+    checkout.  The one-chunk ``index`` leaf, all of whose bytes differ
+    too, is patched in place: it keeps its storage."""
     from repro_torch.core import KishuSession, MemoryStore
     from repro_torch.models import lm
     from repro_torch.train.step import (make_decode_step,
@@ -910,10 +911,13 @@ def test_graphed_decode_recaptures_after_a_full_load(dev):
     sess.run("generate", n=gen)
     assert graphed.captures == 1
     first = sess.ns["generated"].clone()
-    name = "caches/stages/stage_0/sub_0/attn/index"
+    name = "caches/stages/stage_0/sub_0/attn/k"
+    index = "caches/stages/stage_0/sub_0/attn/index"
     before = sess.ns[name].data_ptr()
+    before_index = sess.ns[index].data_ptr()
     st = sess.checkout(c0)
     assert st.covs_loaded > 0 and sess.ns[name].data_ptr() != before
+    assert sess.ns[index].data_ptr() == before_index
     sess.run("generate", n=gen)
     assert graphed.captures == 2
     assert torch.equal(sess.ns["generated"], first)
@@ -1920,26 +1924,180 @@ def _sharded_smollm(dev, tmp_path, dtype="float32"):
     return cfg, params, dparams, rules, mesh
 
 
-def test_graphed_decode_raises_on_dtensor_leaves(dev, tmp_path):
-    """The sharded step is not captured, and never runs eagerly in the
-    graph's place: DTensor params or caches raise."""
+def test_graphed_sharded_decode_equals_the_eager_sharded_step(dev,
+                                                               tmp_path):
+    """The sharded step captured: DTensor params under ShardingRules and
+    caches under ``shard_caches`` on a one-rank NCCL (1, 1) mesh, seven
+    teacher-forced steps on 4-slot caches (the last three past a full
+    cache) through the graph and through the eager sharded step on caches
+    of their own: the same logits, tokens and cache bytes at every step,
+    bit for bit (the same kernels in the same order, the collectives among
+    them), from one capture; the caches keep their local storage and the
+    outputs are DTensors on the eager step's placements."""
     import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
     from repro_torch.models import lm
     from repro_torch.sharding.rules import shard_caches
-    from repro_torch.train.step import GraphedDecodeStep, ShardedCaptureError
-    cfg, params, dparams, rules, _ = _sharded_smollm(dev, tmp_path)
+    from repro_torch.train.step import GraphedDecodeStep, _greedy_step
+    cfg, params, dparams, rules, mesh = _sharded_smollm(dev, tmp_path)
     try:
-        plain = lm.init_caches(cfg, 2, 8, device=dev)
-        sharded = shard_caches(lm.init_caches(cfg, 2, 8, device=dev), rules, 2)
-        step = GraphedDecodeStep(cfg)
-        batch = {"tokens": torch.zeros((2, 1), dtype=torch.int32,
-                                       device=dev), "index": 0}
-        for p, c in ((dparams, sharded), (params, sharded),
-                     (dparams, plain)):
-            with pytest.raises(ShardedCaptureError):
-                step(p, c, batch)
-        assert step.captures == 0
-        assert not any(bool(t.any()) for t in _flat_leaves(plain))
+        b, s, steps = 2, 4, 7
+        toks = torch.randint(0, cfg.vocab_size, (b, steps), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(5), dtype=torch.int32)
+        tok_pl = list(rules.batch_spec({"t": toks[:, :1]})["t"])
+        cg = shard_caches(lm.init_caches(cfg, b, s, device=dev), rules, b)
+        ce = shard_caches(lm.init_caches(cfg, b, s, device=dev), rules, b)
+        ptrs = [t.to_local().data_ptr() for t in _flat_leaves(cg)]
+        graphed = GraphedDecodeStep(cfg)
+        for t in range(steps):
+            tok = distribute_tensor(toks[:, t:t + 1], mesh, tok_pl)
+            lg, nxt, _ = graphed.with_logits(dparams, cg, {"tokens": tok,
+                                                           "index": t})
+            le, ne = _greedy_step(cfg, dparams, ce, {"tokens": tok,
+                                                     "index": t})
+            torch.cuda.synchronize()
+            assert isinstance(lg, DTensor) and isinstance(nxt, DTensor)
+            assert lg.placements == le.placements
+            assert nxt.placements == ne.placements
+            assert torch.equal(lg.to_local(), le.to_local()), t
+            assert torch.equal(nxt.to_local(), ne.to_local()), t
+            assert all(torch.equal(x.to_local(), y.to_local()) for x, y
+                       in zip(_flat_leaves(cg), _flat_leaves(ce))), t
+        assert graphed.captures == 1 and graphed.capture_s > 0
+        assert [t.to_local().data_ptr() for t in _flat_leaves(cg)] == ptrs
+    finally:
+        dist.destroy_process_group()
+
+
+def test_graphed_sharded_decode_after_a_patch_rollback_does_not_recapture(
+        dev, tmp_path):
+    """A KishuSession over the one-rank NCCL group holds DTensor caches;
+    the graphed sharded step fills a prefix and generates; a checkout back
+    to the prefix patches every cache leaf in place (K and V by chunk, the
+    one-chunk ``index`` whole), so the next generation replays the same
+    graph — one capture in all — and gives the same tokens and the same
+    cache bytes as the first."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.core import KishuSession, MemoryStore
+    from repro_torch.models import lm
+    from repro_torch.sharding.rules import shard_caches
+    from repro_torch.train.step import GraphedDecodeStep
+    cfg, params, dparams, rules, mesh = _sharded_smollm(dev, tmp_path)
+    try:
+        b, prefix, gen, slots = 2, 6, 4, 64
+        prompts = torch.randint(0, cfg.vocab_size, (b, prefix), device=dev,
+                                generator=torch.Generator(device=dev)
+                                .manual_seed(6), dtype=torch.int32)
+        tok_pl = list(rules.batch_spec({"t": prompts[:, :1]})["t"])
+        graphed = GraphedDecodeStep(cfg)
+
+        def step(caches, tok, index):
+            nxt, _ = graphed(dparams, caches, {
+                "tokens": distribute_tensor(tok, mesh, tok_pl),
+                "index": index})
+            return nxt.full_tensor()
+
+        def prefill(ns):
+            caches = shard_caches(lm.init_caches(cfg, b, slots, device=dev),
+                                  rules, b)
+            for t in range(prefix):
+                tok = step(caches, prompts[:, t:t + 1], t)
+            ns.set_tree("caches", caches)
+            ns["last_tok"], ns["pos"] = tok, prefix
+
+        def generate(ns):
+            caches = ns.get_tree("caches")
+            tok, pos, outs = ns["last_tok"], ns["pos"], []
+            for t in range(gen):
+                tok = step(caches, tok, pos + t)
+                outs.append(tok)
+            ns["last_tok"], ns["pos"] = tok, pos + gen
+            ns["generated"] = torch.cat(outs, 1)
+
+        sess = KishuSession(MemoryStore(), chunk_bytes=1 << 10, device=dev,
+                            group=dist.group.WORLD)
+        sess.register("prefill", prefill)
+        sess.register("generate", generate)
+        sess.init_state({})
+        c0 = sess.run("prefill")
+        names = sorted(n for n in sess.ns.names() if n.startswith("caches/"))
+        ptrs = {n: sess.ns[n].to_local().data_ptr() for n in names}
+        sess.run("generate")
+        first = sess.ns["generated"].clone()
+        after = {n: sess.ns[n].to_local().clone() for n in names}
+        assert graphed.captures == 1
+        st = sess.checkout(c0)
+        assert st.covs_patched >= len(names)
+        assert all(isinstance(sess.ns[n], DTensor) for n in names)
+        assert {n: sess.ns[n].to_local().data_ptr() for n in names} == ptrs
+        sess.run("generate")
+        assert graphed.captures == 1
+        assert torch.equal(sess.ns["generated"], first)
+        for n in names:
+            assert torch.equal(sess.ns[n].to_local(), after[n]), n
+        sess.close()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_moe_train_step_on_one_nccl_rank_matches_the_plain_step(
+        dev, tmp_path):
+    """Two train steps of a float32 reduced phi3.5-moe with params and
+    moments under ShardingRules on a one-rank NCCL (1, 1) mesh, inside the
+    MoE weight-gather context, against the plain step from the same
+    state: loss within 1e-5, every parameter within 2e-2 and each leaf's
+    change within 2e-5 of the plain change (the backward crosses the
+    dispatch's gather and un-gather and the aux loss's)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.core.namespace import flatten_tree
+    from repro_torch.launch.mesh import init_file_group, make_local_mesh
+    from repro_torch.models.config import get_config
+    from repro_torch.models.testing import reduced
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import context as shctx
+    from repro_torch.sharding.rules import ShardingRules, shard_train_state
+    from repro_torch.train import step as tstep
+    init_file_group("nccl", 0, 1, str(tmp_path / "pg"))
+    try:
+        mesh = make_local_mesh(model=1)
+        cfg = reduced(get_config("phi3.5-moe-42b-a6.6b"), n_layers=2)
+        opt = AdamWConfig(lr=1e-3, eps=1e-6)
+        rules = ShardingRules(cfg, mesh)
+        plain = tstep.init_train_state(cfg, 0, opt, device=dev)
+        state = shard_train_state(tstep.init_train_state(cfg, 0, opt,
+                                                         device=dev), rules)
+        b, s = 4, 16
+        hidden = (mesh, rules.hidden_spec(b, s))
+        sharded_fn = tstep.make_train_step(cfg, opt, hidden_sharding=hidden)
+        plain_fn = tstep.make_train_step(cfg, opt)
+        g = torch.Generator(device=dev).manual_seed(12)
+        for _ in range(2):
+            bt = {k: torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                                   generator=g, dtype=torch.int32)
+                  for k in ("tokens", "labels")}
+            pl = rules.batch_spec(bt)
+            before = {k: v.float().clone() for k, v in
+                      flatten_tree(plain["params"]).items()}
+            before_s = {k: v.full_tensor().float().clone() for k, v in
+                        flatten_tree(state["params"]).items()}
+            with shctx.moe_weight_gather(rules):
+                state, m = sharded_fn(state, {
+                    k: distribute_tensor(v, mesh, list(pl[k]))
+                    for k, v in bt.items()})
+            plain, pm = plain_fn(plain, bt)
+            assert abs(float(m["loss"].full_tensor()) - float(pm["loss"])) \
+                < 1e-5
+            got = flatten_tree(state["params"])
+            for k, want in flatten_tree(plain["params"]).items():
+                x = got[k].full_tensor().float()
+                torch.testing.assert_close(x, want.float(), atol=2e-2,
+                                           rtol=2e-2)
+                torch.testing.assert_close(x - before_s[k],
+                                           want.float() - before[k],
+                                           atol=2e-5, rtol=0)
     finally:
         dist.destroy_process_group()
 

@@ -125,6 +125,34 @@ def test_decode_collectives_do_not_grow_with_the_cache(fake8, monkeypatch,
     assert recs[0]["n_all-reduce"] > 0
 
 
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b",
+                                  "jamba-1.5-large-398b", "qwen2-vl-72b"])
+def test_train_cells_run_where_the_reference_trains(fake8, monkeypatch,
+                                                    arch):
+    """The ``train_4k`` cells that raised before, reduced, on the (2,4)
+    fake mesh: MoE layers on DTensors (phi3.5-moe, deepseek-v3 with MLA
+    and MTP, jamba's hybrid stack) take their gradients through the
+    dispatch's gather and un-gather, and qwen2-vl trains from the
+    frontend's ``embeds`` (its ``embed`` leaf unused, given a zero
+    gradient on its placements).  The step runs, counts FLOPs and moves
+    collective bytes, and the moments keep their placements.  The cell's
+    sequence is cut to 64 tokens: the SSM's chunked scan issues ops in
+    proportion to it."""
+    monkeypatch.setitem(shapes.SHAPES, "train_4k",
+                        shapes.ShapeSpec("train_4k", 64, 8, "train"))
+    n_layers = 8 if arch.startswith("jamba") else 2   # one hybrid unit
+    cell = dryrun.build_cell(arch, "train_4k", fake8, cfg_override=reduced(
+        get_config(arch), n_layers=n_layers))
+    state, batch = cell["args"]
+    assert ("embeds" in batch) == (arch == "qwen2-vl-72b")
+    m = dryrun._measure(cell)
+    assert m["flops"] > 0 and m["collectives"]["total"] > 0
+    flat, mu = flatten_tree(state["params"]), flatten_tree(state["opt"]["mu"])
+    for k, p in flat.items():
+        assert isinstance(mu[k], DTensor), k
+        assert mu[k].placements == p.placements, k
+
+
 def test_long_500k_runs_for_sub_quadratic_and_skips_otherwise(tmp_path):
     """mamba2 (reduced, registered for this test) runs ``long_500k`` on
     the (16,16) mesh; qwen3-1.7b is skipped with the reference's

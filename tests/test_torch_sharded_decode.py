@@ -19,7 +19,9 @@
   tolerances (logits atol 1e-4 / rtol 1e-4, K/V atol 1e-5 / rtol 1e-4,
   SSM leaves atol 5e-5 / rtol 1e-4).  One sharded step runs under
   ``CommDebugMode``: every attention layer runs its three reductions,
-  one all-reduce each, counted by op.
+  one all-reduce each, counted by op.  ``GraphedDecodeStep`` on these
+  CPU DTensors runs the eager step: the same token and caches, no
+  capture.
 - Kishu on sharded caches (in the (1, 2) ranks): a 2-rank session
   commits DTensor caches whose chunk keys, detection hashes and stored
   bytes equal the single-device commit of the same values, decodes on,
@@ -41,7 +43,8 @@ pytest.importorskip("torch")
 
 import torch  # noqa: E402
 
-from repro_torch.core.namespace import flatten_tree  # noqa: E402
+from repro_torch.core.namespace import (flatten_tree,  # noqa: E402
+                                        unflatten_tree)
 from repro_torch.interop import to_torch  # noqa: E402
 from repro_torch.launch.mesh import run_local_ranks  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
@@ -371,16 +374,25 @@ def _sharded_rank(rank, world, model, cases, kishu):
         leaves = flatten_tree(caches)
         gathered = {k: v.full_tensor().numpy().copy()
                     for k, v in leaves.items()}
-        # the greedy step on the same caches: a batch-sharded token
+        # the greedy step on the same caches: a batch-sharded token.  The
+        # graphed step on a copy of them runs that eager step on CPU
+        # (gloo) tensors: the same token and caches, no capture
+        twin = {k: v.clone() for k, v in leaves.items()}
         nxt, _ = tstep.make_decode_step(cfg)(dparams, caches,
                                              batch_at(STEPS - 1))
+        graphed = tstep.GraphedDecodeStep(cfg)
+        gnxt, _ = graphed(dparams, unflatten_tree(twin), batch_at(STEPS - 1))
+        same = torch.equal(gnxt.full_tensor(), nxt.full_tensor()) and all(
+            torch.equal(twin[k].to_local(), v.to_local())
+            for k, v in leaves.items())
         out[arch] = {
             "logits": np.stack(logits, 1), "caches": gathered,
             "dtensor": all(isinstance(v, DTensor) for v in leaves.values()),
             "placements": {k: tuple(map(str, v.placements))
                            for k, v in leaves.items()},
             "all_reduce": _all_reduces(comm), "split": dict(split),
-            "next": (type(nxt).__name__, nxt.full_tensor().numpy())}
+            "next": (type(nxt).__name__, nxt.full_tensor().numpy()),
+            "graphed": (graphed.captures, same)}
     if kishu is not None:
         out["kishu"] = _kishu_rank(mesh, *kishu)
     return out
@@ -510,6 +522,7 @@ def _check_family(arch, got, ref, world):
     assert got["all_reduce"] >= 3 * units, (msg, got["all_reduce"], units)
     kind, nxt = got["next"]
     assert kind == "DTensor" and nxt.shape == (B, 1)
+    assert got["graphed"] == (0, True), msg
 
 
 def _run_mesh(references, world, model, tmp_path=None):

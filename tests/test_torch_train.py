@@ -294,6 +294,66 @@ def test_train_step_matches_jax_zoo(arch, microbatches):
     ``make_train_step``: deepseek's loss carries the MTP block's t+2
     cross-entropy (``mtp_coef`` 0.1) and the MoE aux loss, whisper's batch
     its encoder frames (split with the tokens into microbatches)."""
+    _two_steps_against_jax(arch, microbatches, _batch)
+
+
+def _vlm_batch(cfg, step, b=4, s=16):
+    """A vision frontend's training batch, as the JAX package's
+    ``input_specs`` shapes it: precomputed ``embeds`` [B,S,d] and M-RoPE
+    ``positions_thw`` [B,S,3] (a 4-wide grid: time, row, column), with
+    token labels; made from a numpy seed."""
+    rng = np.random.default_rng(30 + step)
+    t = np.arange(s, dtype=np.int32)
+    thw = np.broadcast_to(np.stack([t // 8, (t // 4) % 2, t % 4], -1),
+                          (b, s, 3)).astype(np.int32)
+    batch = {"embeds": rng.standard_normal(
+                 (b, s, cfg.d_model)).astype(np.float32),
+             "positions_thw": np.ascontiguousarray(thw),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s),
+                                    dtype=np.int32)}
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_from_embeds_matches_jax(microbatches):
+    """qwen2-vl trained from its frontend's embeddings and ``positions_thw``
+    (the JAX package's training input for the vision family): two steps at
+    the zoo test's tolerances.  ``embed`` takes no part in the loss; its
+    gradient is zero in both packages, so AdamW only decays it."""
+    _two_steps_against_jax("qwen2-vl-72b", microbatches, _vlm_batch)
+
+
+def test_zero_gradient_leaves_are_the_reference_zero_set():
+    """The leaves the step gives zero gradients (``loss_and_grads``'s
+    ``unused``) are, by name, exactly those whose JAX gradient is
+    identically zero: ``embed`` for qwen2-vl trained from embeddings, none
+    from tokens.  ``embed``'s step is then the decay-only AdamW update."""
+    jcfg, tcfg, jstate, tstate, opt = _carried("qwen2-vl-72b")
+    jloss = jstep.make_loss_fn(jcfg, remat=False)
+    tloss = tstep.make_loss_fn(tcfg)
+    for make in (_vlm_batch, _batch):
+        jb, tb = make(jcfg, 0, b=4)
+        jg = _flat(jax.tree.map(np.asarray, jax.grad(
+            lambda p: jloss(p, jb)[0])(jstate["params"])))
+        _, _, grads, unused = tstep.loss_and_grads(tloss, tstate["params"],
+                                                   tb)
+        zero = sorted(k for k, g in jg.items() if not np.any(g))
+        assert sorted(unused) == zero, make.__name__
+        assert zero == (["embed"] if make is _vlm_batch else [])
+        for k in unused:
+            assert not torch.any(_flat(grads)[k])
+            assert _flat(grads)[k].dtype == _flat(tstate["params"])[k].dtype
+    e0 = tstate["params"]["embed"].clone()
+    tfn = tstep.make_train_step(tcfg, tadamw.AdamWConfig(**opt))
+    tstate, _ = tfn(tstate, _vlm_batch(jcfg, 0)[1], 1e-3)
+    # zero moments: the step is lr * 0 / (0 + eps), so only the decay moves
+    decayed = (e0.float() * (1 - torch.tensor(1e-3) * 0.1)).to(e0.dtype)
+    assert torch.equal(tstate["params"]["embed"], decayed)
+    assert not torch.any(tstate["opt"]["mu"]["embed"])
+
+
+def _two_steps_against_jax(arch, microbatches, make_batch):
     jcfg, tcfg, jstate, tstate, opt = _carried(arch)
     jfn = jstep.make_train_step(jcfg, jadamw.AdamWConfig(**opt),
                                 remat=False, microbatches=microbatches)
@@ -301,7 +361,7 @@ def test_train_step_matches_jax_zoo(arch, microbatches):
                                 microbatches=microbatches)
     ids = {k: id(v) for k, v in _flat(tstate).items()}
     for i in range(2):
-        jb, tb = _batch(jcfg, i, b=4)
+        jb, tb = make_batch(jcfg, i, b=4)
         if jcfg.enc_dec:
             e = np.random.default_rng(20 + i).standard_normal(
                 (4, 6, jcfg.d_model)).astype(np.float32)
