@@ -201,7 +201,8 @@ repository, it exits non-zero before printing any result.
     python3 chip_smoke.py --only phase2,phase6 [--root DIR]
 
 runs only the named phases (2, 6, the serving phases 5, 7, 7b, 7c,
-7d and 9, and the training phase 10, each on a store of its own), taken from the ``chip_smoke.py`` and
+7d and 9, the distribution phase 8 and the training phase 10, each on a
+store of its own), taken from the ``chip_smoke.py`` and
 ``src/`` under ``DIR`` (default: this tree), and prints one line each of
 wall times, decode ms a step, the graphed step's busy share and peak
 memory.  Two trees are compared by calling it in turns with each tree's
@@ -338,7 +339,7 @@ TRAIN_PATH_KERNELS = ("chunk_hash", "delta_pack", "patch_scatter",
 PHASE10_LIMIT_S = 300.0
 # the phases ``--only`` runs alone: each takes (torch, dev, workdir)
 TIMED_PHASES = ("phase2", "phase6", "phase5", "phase7", "phase7b",
-                "phase7c", "phase7d", "phase9", "phase10")
+                "phase7c", "phase7d", "phase8", "phase9", "phase10")
 
 
 def fail(msg: str) -> None:

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.session import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import layers, lm
 from repro_torch.models.config import get_config
 from repro_torch.models.testing import reduced as reduce_cfg
 from repro_torch.train import step as step_lib
@@ -79,7 +79,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     for t in range(total - 1):
         batch = {"tokens": tok, "index": t}
         if cfg.frontend == "vision":
-            batch = {"embeds": params["embed"][tok[:, 0].long()][:, None, :],
+            batch = {"embeds": layers.embed_lookup(params["embed"],
+                                                   tok[:, 0])[:, None, :],
                      "index": t}
         nxt, caches = decode(params, caches, batch)
         tok = prompts[:, t + 1:t + 2] if t + 1 < plen else nxt

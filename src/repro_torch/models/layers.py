@@ -16,8 +16,8 @@ Conventions
   contract without a float32 copy of a bf16/f16 operand on the card: two
   operands of one half dtype on CUDA go to cuBLAS as they are, through
   ``mm``/``bmm`` with ``out_dtype=float32`` (float32 accumulation and
-  result); DTensor operands the same way on their local shards.  Its
-  backward splits the float32 cotangent exactly into three bf16 parts, so
+  result); DTensor operands the same way on their local shards, laid out
+  by :func:`label_plan` over the equation's labels.  Its backward splits the float32 cotangent exactly into three bf16 parts, so
   gradients are the upcast path's up to float32 summation order (f16
   operands upcast there).  Everything else — CPU tensors (the oracle; the
   CPU has no ``mm.dtype``), float32 or mixed operands and the
@@ -37,6 +37,7 @@ Conventions
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -109,20 +110,15 @@ def einsum_plan(eq: str, shape_a: Tuple[int, ...], shape_b: Tuple[int, ...]
         perm_out=tuple(c_order.index(c) for c in out))
 
 
-def _reshape(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    return x.reshape(shape)
-
-
-def einsum_via(eq: str, a: torch.Tensor, b: torch.Tensor, matmul,
-               view=_reshape) -> torch.Tensor:
-    """``eq`` on ``a``, ``b`` by :func:`einsum_plan` and ``matmul``
-    ([B,M,K] x [B,K,N] -> [B,M,N]).  Permutes are views; ``view(x,
-    shape)`` reshapes, copying only where the permuted dims cannot merge in
-    place (DTensors pass :func:`_dt_view`)."""
+def einsum_via(eq: str, a: torch.Tensor, b: torch.Tensor, matmul
+               ) -> torch.Tensor:
+    """``eq`` on plain ``a``, ``b`` by :func:`einsum_plan` and ``matmul``
+    ([B,M,K] x [B,K,N] -> [B,M,N]).  Permutes are views; a reshape copies
+    only where the permuted dims cannot merge in place."""
     pl = einsum_plan(eq, tuple(a.shape), tuple(b.shape))
-    a3 = view(a.permute(pl.perm_a), pl.a3)
-    b3 = view(b.permute(pl.perm_b), pl.b3)
-    return view(matmul(a3, b3), pl.c_shape).permute(pl.perm_out)
+    a3 = a.permute(pl.perm_a).reshape(pl.a3)
+    b3 = b.permute(pl.perm_b).reshape(pl.b3)
+    return matmul(a3, b3).reshape(pl.c_shape).permute(pl.perm_out)
 
 
 def _mm_f32(a3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
@@ -162,95 +158,9 @@ def _bmm_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.bmm(x.float(), y.float())
 
 
-# [B,M,K] x [B,K,N] on one mesh dim: (a3's, b3's, the product's)
-# placements that multiply shard by shard, and the dim they split
-# (0 B, 1 M, 2 K, 3 N)
-_LAYOUTS = ((Replicate(), Replicate(), Replicate(), None),
-            (Shard(0), Shard(0), Shard(0), 0),
-            (Shard(1), Replicate(), Shard(1), 1),
-            (Replicate(), Shard(2), Shard(2), 3),
-            (Shard(2), Shard(1), Partial(), 2))
-
-
-def _move_bytes(p, q, n: int, nbytes: int) -> float:
-    """Bytes a rank receives to take a tensor of ``nbytes`` local bytes
-    from placement ``p`` to ``q`` on a mesh dim of ``n`` ranks."""
-    if p == q or (isinstance(q, Shard) and p == Replicate()):
-        return 0.0                      # a local slice
-    if q == Replicate():
-        return (2.0 if p.is_partial() else n - 1.0) * nbytes
-    return float(nbytes)                # all-to-all, reduce-scatter
-
-
-def _bmm_layouts(x: DTensor, y: DTensor) -> list:
-    """(a3's, b3's, the product's) placements for each mesh dim: of
-    :data:`_LAYOUTS` whose split dim the mesh dims splitting it so far
-    divide evenly, the one that moves the fewest bytes — the operands'
-    redistribution plus the reduction a partial product will need, as
-    DTensor's own propagation weighs them; the first on a tie."""
-    mesh = x.device_mesh
-    xl, yl = x.to_local(), y.to_local()
-    a_bytes = xl.numel() * xl.element_size()
-    b_bytes = yl.numel() * yl.element_size()
-    out_bytes = xl.shape[0] * xl.shape[1] * yl.shape[2] * 4
-    size = (x.shape[0], x.shape[1], x.shape[2], y.shape[2])
-    ways = [1, 1, 1, 1]
-    out = []
-    for i, (pa, pb) in enumerate(zip(x.placements, y.placements)):
-        n = mesh.size(i)
-
-        def cost(lay):
-            qa, qb, qo, d = lay
-            if d is not None and size[d] % (ways[d] * n):
-                return float("inf")
-            return _move_bytes(pa, qa, n, a_bytes) \
-                + _move_bytes(pb, qb, n, b_bytes) \
-                + (out_bytes if qo.is_partial() else 0)
-        lay = min(_LAYOUTS, key=cost)
-        if lay[3] is not None:
-            ways[lay[3]] *= n
-        out.append(lay)
-    return out
-
-
-def _dt_bmm(x: torch.Tensor, y: torch.Tensor) -> DTensor:
-    """:func:`_bmm_f32` of two [B,M,K] x [B,K,N] operands, a DTensor among
-    them (a plain one acts as replicated): both redistributed by
-    :func:`_bmm_layouts`, the product of the local shards, a DTensor on
-    the product's placements (partial where the contraction is
-    sharded)."""
-    mesh = (x if isinstance(x, DTensor) else y).device_mesh
-    x, y = (t if isinstance(t, DTensor) else DTensor.from_local(
-        t, mesh, [Replicate()] * mesh.ndim, run_check=False) for t in (x, y))
-    lay = _bmm_layouts(x, y)
-    x = x.redistribute(mesh, [q[0] for q in lay])
-    y = y.redistribute(mesh, [q[1] for q in lay])
-    (bb, m, _), n = x.shape, y.shape[2]
-    return DTensor.from_local(_bmm_f32(x.to_local(), y.to_local()), mesh,
-                              [q[2] for q in lay], run_check=False,
-                              shape=(bb, m, n), stride=(m * n, n, 1))
-
-
-def _product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    if isinstance(x, DTensor) or isinstance(y, DTensor):
-        return _dt_bmm(x, y)
-    return _bmm_f32(x, y)
-
-
-def _grad_like(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A float32 gradient in ``x``'s dtype, on ``x``'s placements (a
-    partial one as replicated: each summand's gradient is the whole
-    gradient); a plain tensor's gradient plain."""
-    g = g.to(x.dtype)
-    if isinstance(x, DTensor):
-        return g.redistribute(x.device_mesh, [
-            Replicate() if q.is_partial() else q for q in x.placements])
-    return g.full_tensor() if isinstance(g, DTensor) else g
-
-
 class _MMF32(torch.autograd.Function):
-    """:func:`_product` with a backward (``mm.dtype`` has no derivative).
-    Both gradients are products (:func:`_product`) of the float32
+    """:func:`_bmm_f32` with a backward (``mm.dtype`` has no derivative).
+    Both gradients are products (:func:`_bmm_f32`) of the float32
     cotangent with the other operand — on the card three bf16 products of
     its exact split, the upcast path's float32 products up to summation
     order — each rounded to its operand's dtype as the upcast path's
@@ -259,23 +169,23 @@ class _MMF32(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a3, b3):
         ctx.save_for_backward(a3, b3)
-        return _product(a3, b3)
+        return _bmm_f32(a3, b3)
 
     @staticmethod
     def backward(ctx, g):
         a3, b3 = ctx.saved_tensors
         ga = gb = None
         if ctx.needs_input_grad[0]:
-            ga = _grad_like(_product(g, b3.transpose(1, 2)), a3)
+            ga = _bmm_f32(g, b3.transpose(1, 2)).to(a3.dtype)
         if ctx.needs_input_grad[1]:
-            gb = _grad_like(_product(a3.transpose(1, 2), g), b3)
+            gb = _bmm_f32(a3.transpose(1, 2), g).to(b3.dtype)
         return ga, gb
 
 
 def _mm_f32_autograd(a3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and (a3.requires_grad or b3.requires_grad):
         return _MMF32.apply(a3, b3)
-    return _product(a3, b3)
+    return _bmm_f32(a3, b3)
 
 
 def _half_on_card(ops: Sequence[torch.Tensor]) -> bool:
@@ -284,82 +194,248 @@ def _half_on_card(ops: Sequence[torch.Tensor]) -> bool:
         and all(o.dtype == dt and o.is_cuda for o in ops)
 
 
-def _reshape_groups(old: Sequence[int], new: Sequence[int]):
-    """Pair the dims of a pure merge/split reshape: a list of (old dims,
-    new dims) whose sizes multiply alike, in order."""
-    out, i, j = [], 0, 0
-    while i < len(old) or j < len(new):
-        gi, gj = [i], [j]
-        po = old[i] if i < len(old) else 1
-        pn = new[j] if j < len(new) else 1
-        i, j = i + 1, j + 1
-        while po != pn:
-            if po < pn:
-                po *= old[i]
-                gi.append(i)
-                i += 1
-            else:
-                pn *= new[j]
-                gj.append(j)
-                j += 1
-        out.append(([d for d in gi if d < len(old)],
-                    [d for d in gj if d < len(new)]))
-    return out
+class LabelPlan(NamedTuple):
+    """An einsum over a device mesh, one choice a mesh dim (``labels``:
+    the label it shards, or ``None``): the placements each operand takes
+    for the local product (``ins``), the product's (``out``: ``Partial``
+    where a contracted label is sharded) and each operand's gradient's
+    (``grads``: ``Partial`` where the mesh dim shards a label the operand
+    lacks, so that its local gradient sums over only part of it), and the
+    product's once reduced (``reduced``: each partial mesh dim
+    reduce-scattered onto the output dim an operand had sharded there
+    before, such as the batch rows of an activation, where that dim
+    divides and the product does not shard it already; else
+    all-reduced)."""
+    labels: Tuple[Optional[str], ...]
+    ins: Tuple[tuple, ...]
+    out: tuple
+    grads: Tuple[tuple, ...]
+    reduced: tuple
 
 
-def _legal_reshape(x: DTensor, shape: Sequence[int]) -> DTensor:
-    """``x.reshape(shape)`` for a DTensor, with every placement the view
-    cannot carry replicated first: a sharded dim must be the outermost of
-    the dims it merges with, and the outermost dim it splits into must
-    divide over its mesh dim."""
-    first = {olds[0]: shape[news[0]] for olds, news
-             in _reshape_groups(tuple(x.shape), tuple(shape))
-             if olds and news}
-    mesh = x.device_mesh
-    pl = [q if not isinstance(q, Shard) or (
-        q.dim in first and first[q.dim] % mesh.size(i) == 0)
-        else Replicate() for i, q in enumerate(x.placements)]
-    if pl != list(x.placements):
-        x = x.redistribute(mesh, pl)
-    return x.reshape(shape)
+def _local_bytes(shape: Shape, itemsize: int, placements, mesh_shape
+                 ) -> float:
+    n = float(np.prod(shape, dtype=np.float64)) * itemsize
+    for p, m in zip(placements, mesh_shape):
+        if isinstance(p, Shard):
+            n /= m
+    return n
 
 
-class _DTReshape(torch.autograd.Function):
-    """:func:`_legal_reshape` both ways: the gradient is reshaped back
-    under the same rule."""
+def _move_bytes(shape: Shape, itemsize: int, cur, new, mesh_shape) -> float:
+    """Bytes a rank receives to take a tensor from placements ``cur`` to
+    ``new``: an all-gather, all-to-all or reduce-scatter moves (n-1)/n of
+    the larger local shard on each mesh dim of n ranks that changes, an
+    all-reduce twice that, a slice of a replicated dim nothing; a dim
+    whose mesh dims must nest in another order, the whole tensor."""
+    big = max(_local_bytes(shape, itemsize, cur, mesh_shape),
+              _local_bytes(shape, itemsize, new, mesh_shape))
+    total = 0.0
+    for d in range(len(shape)):
+        # a dim split by several mesh dims nests them in mesh order: a
+        # layout whose order does not extend the other's from the inside
+        # is reached only through the whole tensor (DTensor gathers it)
+        a = [i for i, p in enumerate(cur) if p == Shard(d)]
+        b = [i for i, q in enumerate(new) if q == Shard(d)]
+        k = min(len(a), len(b))
+        if a[:k] != b[:k]:
+            total += float(np.prod(shape, dtype=np.float64)) * itemsize
+    for p, q, n in zip(cur, new, mesh_shape):
+        if p == q or n == 1 or (p.is_replicate() and isinstance(q, Shard)):
+            continue
+        frac = (n - 1) / n
+        total += (2 * frac if p.is_partial() and q.is_replicate()
+                  else frac) * big
+    return total
 
-    @staticmethod
-    def forward(ctx, x, shape):
-        ctx.shape = tuple(x.shape)
-        return _legal_reshape(x, shape)
 
-    @staticmethod
-    def backward(ctx, g):
-        return _legal_reshape(g, ctx.shape), None
+@functools.lru_cache(maxsize=None)
+def label_plan(eq: str, shapes: Tuple[Tuple[int, ...], ...],
+               placements: Tuple[tuple, ...], mesh_shape: Tuple[int, ...],
+               items: Tuple[int, ...]) -> LabelPlan:
+    """The :class:`LabelPlan` of ``eq`` (explicit output, no repeated
+    label) for operands of these shapes, placements and item sizes on a
+    mesh of ``mesh_shape``.  Each mesh dim shards one label in every
+    operand that has it — an output label (a batch or a free label) or a
+    contracted one, which makes the product partial — or none, where
+    every mesh dim sharding a label divides its size, and where the
+    largest operand keeps every output label it is sharded on.  Of all
+    such
+    choices the plan takes the one that moves the fewest bytes: the
+    operands' redistribution (:func:`_move_bytes`) plus the all-reduce of
+    a partial float32 product; on a tie the one with the smallest local
+    product, then the one that changes the fewest placements on mesh
+    dims of one rank, then the first in the order (none, the output's
+    labels, the contracted labels), so that products feeding one
+    elementwise op shard alike.  So a large activation stays where it is
+    and a weight moves (training gathers an FSDP weight), a small one
+    moves instead (decode all-reduces activations), and on a one-rank
+    mesh no placement changes."""
+    lhs, out = eq.replace(" ", "").split("->")
+    ins = lhs.split(",")
+    size = {}
+    for labels, shape in zip(ins, shapes):
+        size.update(zip(labels, shape))
+    order = [None] + list(out) + sorted(set(lhs) - set(out) - {","},
+                                        key=lhs.index)
+    out_shape = tuple(size[c] for c in out)
+    total = float(np.prod(list(size.values()), dtype=np.float64))
+    # the largest operand keeps the output labels it is sharded on (an
+    # activation its batch rows), so a layout never drifts from op to op
+    big = max(range(len(ins)), key=lambda j: (
+        np.prod(shapes[j], dtype=np.float64) * items[j], -j))
+    keep = {i: ins[big][p.dim] for i, p in enumerate(placements[big])
+            if isinstance(p, Shard) and ins[big][p.dim] in out}
+    best = None
+    for combo in itertools.product(order, repeat=len(mesh_shape)):
+        if any(combo[i] != c for i, c in keep.items()):
+            continue
+        ways = {}
+        for c, n in zip(combo, mesh_shape):
+            if c is not None:
+                ways[c] = ways.get(c, 1) * n
+        if any(size[c] % w for c, w in ways.items()):
+            continue
+
+        def pl(labels):
+            return tuple(Shard(labels.index(c)) if c is not None
+                         and c in labels else Replicate() for c in combo)
+        pin = tuple(pl(labels) for labels in ins)
+        po = tuple(Partial() if c is not None and c not in out else q
+                   for c, q in zip(combo, pl(out)))
+        done = _reduced(po, ins, placements, out, out_shape, mesh_shape)
+        cost = sum(_move_bytes(*args, mesh_shape) for args in
+                   zip(shapes, items, placements, pin))
+        for q, r, n in zip(po, done, mesh_shape):
+            if q.is_partial():
+                cost += (1 if isinstance(r, Shard) else 2) * (n - 1) / n \
+                    * _local_bytes(out_shape, 4, po, mesh_shape)
+        local = total / float(np.prod(list(ways.values()) or [1]))
+        changes = sum(p != q and n == 1 for cur, new in zip(placements, pin)
+                      for p, q, n in zip(cur, new, mesh_shape))
+        key = (cost, local, changes)
+        if best is None or key < best[0]:
+            best = (key, combo, pin, po, done)
+    _, combo, pin, po, done = best
+    grads = tuple(tuple(Partial() if c is not None and c not in labels
+                        else q for c, q in zip(combo, p))
+                  for labels, p in zip(ins, pin))
+    return LabelPlan(combo, pin, po, grads, done)
 
 
-def _dt_view(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """``einsum_via``'s view for DTensor operands: the reshape (and its
-    gradient's) first replicates what the view cannot carry."""
+def _reduced(po: tuple, ins: Sequence[str], placements: Tuple[tuple, ...],
+             out: str, out_shape: Shape, mesh_shape: Tuple[int, ...]
+             ) -> tuple:
+    """``LabelPlan.reduced`` of the product's placements ``po``."""
+    done, ways = list(po), {}
+    for i, q in enumerate(po):
+        if not q.is_partial():
+            continue
+        done[i] = Replicate()
+        for labels, pls in zip(ins, placements):
+            p = pls[i]
+            if isinstance(p, Shard) and labels[p.dim] in out:
+                d = out.index(labels[p.dim])
+                n = ways.get(d, 1) * mesh_shape[i]
+                if out_shape[d] % n == 0 and Shard(d) not in po:
+                    done[i], ways[d] = Shard(d), n
+                break
+    return tuple(done)
+
+
+def _as_dtensor(x: torch.Tensor, mesh) -> DTensor:
+    """A DTensor as it is; a plain tensor as replicated over ``mesh``."""
     if isinstance(x, DTensor):
-        return _DTReshape.apply(x, tuple(shape))
-    return x.reshape(shape)
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _dt_einsum(eq: str, *ops: torch.Tensor) -> DTensor:
+    """:func:`einsum_f32` of operands with a DTensor among them (a plain
+    one acts as replicated): each redistributed per tensor dim by
+    :func:`label_plan` (a DTensor is never reshaped), the plain route on
+    the local shards, the product wrapped on the output labels'
+    placements and a partial one reduced in float32 at once
+    (``LabelPlan.reduced``), before any cast or nonlinear op.
+
+    Autograd runs through the same layout: the local product's backward
+    is the plain route's, on the forward's shards, so each rank computes
+    its share of every cotangent product, and each local gradient goes
+    back as ``Partial`` where it holds part of a sum
+    (``LabelPlan.grads``), reduced (reduce-scatter or all-reduce) onto
+    the operand's own placements."""
+    mesh = next(o for o in ops if isinstance(o, DTensor)).device_mesh
+    ops = [_as_dtensor(o, mesh) for o in ops]
+    plan = label_plan(eq, tuple(tuple(o.shape) for o in ops),
+                      tuple(tuple(o.placements) for o in ops),
+                      tuple(mesh.shape), tuple(o.element_size() for o in ops))
+    local = [o.redistribute(mesh, q).to_local(grad_placements=g)
+             for o, q, g in zip(ops, plan.ins, plan.grads)]
+    out = DTensor.from_local(einsum_f32(eq, *local), mesh, plan.out,
+                             run_check=False)
+    if plan.reduced != plan.out:
+        out = out.redistribute(mesh, plan.reduced)
+    return out
 
 
 def einsum_f32(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     """``einsum`` with float32 accumulation and a float32 result (the JAX
     package's ``preferred_element_type=jnp.float32``).  Two bf16 (or
     two f16) CUDA operands run as one cuBLAS product of the operands as
-    they are, with no float32 copy of either, DTensors on their local
-    shards; any other call upcasts its operands (see the module
-    docstring)."""
-    if len(ops) == 2 and any(isinstance(o, DTensor) for o in ops):
-        if not _half_on_card(ops):
-            ops = tuple(o.float() for o in ops)
-        return einsum_via(eq, *ops, _mm_f32_autograd, view=_dt_view)
+    they are, with no float32 copy of either; operands with a DTensor
+    among them run the plain route on their local shards
+    (:func:`_dt_einsum`); any other call upcasts its operands (see the
+    module docstring)."""
+    if any(isinstance(o, DTensor) for o in ops):
+        return _dt_einsum(eq, *ops)
     if _half_on_card(ops):
         return einsum_via(eq, ops[0], ops[1], _mm_f32_autograd)
     return torch.einsum(eq, *[o.float() for o in ops])
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``: the rows of an embedding table [V,d] for integer
+    ids [...] -> [..., d].
+
+    On DTensors the rows keep the ids' placements (the batch stays
+    sharded where the tokens are) and are replicated over every other
+    mesh dim: the lookup GSPMD's propagation gives the JAX package, which
+    sets no sharding constraint there.  Per mesh dim: where the ids are
+    sharded the table is gathered whole on that dim, as an FSDP weight is
+    (its local gradient is then partial, reduce-scattered back); where
+    the table is sharded on the vocab and the ids are not, each rank
+    looks up the ids in its own vocab rows, zeros the others, and the
+    rows are summed over the dim at once (one rank holds each row, so the
+    sum is exact); anything else is gathered.  A plain ``table`` and
+    ``ids`` take the plain lookup."""
+    if not isinstance(table, DTensor) and not isinstance(ids, DTensor):
+        return table[ids.long()]
+    from repro_torch.sharding.resharding import local_box
+    mesh = (table if isinstance(table, DTensor) else ids).device_mesh
+    table, ids = _as_dtensor(table, mesh), _as_dtensor(ids, mesh)
+    # per mesh dim: (the table's, the ids', the table's gradient's and
+    # the rows' placements)
+    plans = [(Replicate(), i, Partial(), i) if isinstance(i, Shard)
+             else (t, Replicate(), t, Partial()) if t == Shard(0)
+             else (Replicate(),) * 4
+             for t, i in zip(table.placements, ids.placements)]
+    tq, iq, gq, oq = (list(q) for q in zip(*plans))
+    local = table.redistribute(mesh, tq).to_local(grad_placements=gq)
+    idx = ids.redistribute(mesh, iq).to_local().long()
+    (n, _), (lo, _) = local_box(tuple(table.shape), tuple(mesh.shape),
+                                mesh.get_coordinate(), tq)
+    if n == table.shape[0]:
+        rows = local[idx]
+    else:
+        j = idx - lo
+        inside = (j >= 0) & (j < n)
+        rows = local[j.clamp(0, n - 1)].masked_fill(~inside[..., None], 0)
+    out = DTensor.from_local(rows, mesh, oq, run_check=False)
+    if any(q.is_partial() for q in oq):
+        out = out.redistribute(mesh, [Replicate() if q.is_partial() else q
+                                      for q in oq])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -628,11 +704,7 @@ def seq_shard(buf: DTensor) -> SeqShard:
 def local_rows(x: torch.Tensor, sh: SeqShard) -> torch.Tensor:
     """This rank's batch rows of ``x`` [B,...] with every other dim whole
     (a plain ``x`` acts as replicated), as a plain tensor."""
-    mesh = sh.mesh
-    if not isinstance(x, DTensor):
-        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
-                               run_check=False)
-    return x.redistribute(mesh, sh.rows).to_local()
+    return _as_dtensor(x, sh.mesh).redistribute(sh.mesh, sh.rows).to_local()
 
 
 def whole(x: torch.Tensor) -> torch.Tensor:
@@ -710,27 +782,43 @@ def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True) -> torch.Tensor:
     """``kernels.flash_attention``; DTensor q, k, v (a sharded prefill) run
-    it on their local shards.  Only the batch and the heads may stay
-    sharded, alike in q, k and v (the kernel sees whole sequences and
-    whole GQA groups), and only where every sharding mesh dim divides
-    them; any other placement is replicated first."""
+    it on their local shards, each rank with its own batch rows and heads
+    (the kernel sees whole sequences).  Each mesh dim keeps q's batch or
+    heads where it shards them evenly, else takes the heads, else the
+    batch where they divide, else the heads unevenly (some ranks hold one
+    head more, some none; one mesh dim only), else nothing (the work is
+    replicated there).  Where the heads are sharded more ways than k and
+    v have heads, k and v are repeated to q's heads first (the kernel's
+    GQA broadcast, done before the split)."""
     if not isinstance(q, DTensor):
         return flash_attention(q, k, v, causal=causal)
     mesh = q.device_mesh
     ways = {0: 1, 2: 1}
+    uneven = False
+
+    def even(d, n):
+        return q.shape[d] % (ways[d] * n) == 0 and (
+            d == 2 or all(t.shape[0] % (ways[0] * n) == 0 for t in (k, v)))
     pl = []
     for i, p in enumerate(q.placements):
-        d = p.dim % 4 if type(p) is Shard else None
-        n = ways[d] * mesh.size(i) if d in ways else 0
-        if n and all(t.shape[d] % n == 0 for t in (q, k, v)):
-            ways[d] = n
-            pl.append(p)
-        else:
+        n = mesh.size(i)
+        keep = p.dim % 4 if type(p) is Shard else None
+        d = next((d for d in (keep, 2, 0) if d in ways and even(d, n)),
+                 None)
+        if d is None and not uneven and ways[2] == 1 and q.shape[2] > 1:
+            d, uneven = 2, True
+        if d is None:
             pl.append(Replicate())
+        else:
+            ways[d] *= n
+            pl.append(Shard(d))
+    if ways[2] > 1 and (uneven or k.shape[2] % ways[2]):
+        k, v = (_repeat_kv(t, q.shape[2] // k.shape[2]) for t in (k, v))
     local = [t.redistribute(mesh, pl).to_local() for t in (q, k, v)]
     # meta shards (the dry run) have no kernel: the plain version's shapes
     run = flash_attention_plain if local[0].is_meta else flash_attention
-    out = run(*local, causal=causal)
+    out = run(*local, causal=causal) if local[0].shape[2] else \
+        torch.empty_like(local[0])          # a rank with no head
     b, s, h, hd = q.shape
     return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False,
                               shape=(b, s, h, hd),

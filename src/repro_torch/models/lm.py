@@ -257,10 +257,37 @@ def _apply_layer(p: dict, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor,
     return x, aux
 
 
+class _UnbindUnits(torch.autograd.Function):
+    """``unbind(0)`` of a stacked DTensor leaf whose backward reduces each
+    unit's gradient onto that unit's own placements before stacking them.
+    Autograd's own backward stacks the units' gradients as they come, and
+    one partial unit makes the whole stacked gradient partial; reduced
+    unit by unit, each unit's gradient costs the same collective wherever
+    it is, so a step's collectives grow linearly with the units (what the
+    dry run's calibration fits)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        parts = x.unbind(0)
+        ctx.unit = (x.device_mesh, tuple(parts[0].placements),
+                    parts[0].to_local().shape, x.dtype,
+                    parts[0].to_local().device)
+        return parts
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, pl, local, dtype, device = ctx.unit
+        return torch.stack([
+            DTensor.from_local(torch.zeros(local, dtype=dtype, device=device),
+                               mesh, pl, run_check=False)
+            if g is None else g.redistribute(mesh, pl) for g in grads])
+
+
 def _unstack(tree: Any, n: int) -> List[Any]:
     """A tree of stacked leaves -> ``n`` trees of per-unit leaves.  A
     DTensor sharded on the stacked dim (the rules shard a shared expert's
-    leading dim as if it were the experts') is replicated on it first."""
+    leading dim as if it were the experts') is replicated on it first; a
+    DTensor that takes a gradient is unbound by :class:`_UnbindUnits`."""
     if isinstance(tree, dict):
         subs = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: subs[k][u] for k in tree} for u in range(n)]
@@ -269,7 +296,11 @@ def _unstack(tree: Any, n: int) -> List[Any]:
         tree = tree.redistribute(tree.device_mesh, [
             Replicate() if isinstance(p, Shard) and p.dim == 0 else p
             for p in tree.placements])
-    parts = tree.unbind(0)
+    if isinstance(tree, DTensor) and tree.requires_grad \
+            and torch.is_grad_enabled():
+        parts = _UnbindUnits.apply(tree)
+    else:
+        parts = tree.unbind(0)
     if len(parts) != n:
         raise ValueError(f"stacked leaf has {len(parts)} units, want {n}")
     return list(parts)
@@ -307,10 +338,13 @@ def _run_stages(stages_params: dict, stage_specs: List[StageSpec],
 
 def embed_inputs(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
     """Token embeddings, or ``batch["embeds"]`` (the stubbed frontends'
-    precomputed embeddings) cast to the config's dtype."""
+    precomputed embeddings) cast to the config's dtype.  DTensor tokens
+    give embeddings on their batch placements (``layers.embed_lookup``),
+    as precomputed ``embeds`` arrive, so every later op runs on a rank's
+    share of the batch."""
     if "embeds" in batch:
         return batch["embeds"].to(torch_dtype(cfg.dtype))
-    return params["embed"][batch["tokens"].long()]
+    return layers.embed_lookup(params["embed"], batch["tokens"])
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *,
@@ -384,10 +418,10 @@ def _mtp_logits(cfg: ArchConfig, params: dict, h_final: torch.Tensor,
     ``h_final`` is the final-normed hidden state; the next-token shift
     repeats the last token, as in the JAX package."""
     mtp = params["mtp"]
-    tok = batch["tokens"].long()
+    tok = batch["tokens"]
     nxt = torch.cat([tok[:, 1:], tok[:, -1:]], dim=1)
     h = torch.cat([layers.rmsnorm(mtp["norm"], h_final, cfg.norm_eps),
-                   params["embed"][nxt]], dim=-1)
+                   layers.embed_lookup(params["embed"], nxt)], dim=-1)
     h = layers.einsum_f32("bsk,kd->bsd", h, mtp["proj"]).to(h_final.dtype)
     h, _ = _apply_layer(mtp["block"], cfg, LayerSpec("attn", "dense"), h,
                         positions, training=True)
@@ -473,8 +507,8 @@ def decode_step(cfg: ArchConfig, params: dict, caches: dict, batch: dict,
     (``layers.sharded_decode_write``, ``SeqShard.attention``,
     ``mamba._sharded_ssm_decode``), the
     batch-sharded ``enc_out`` is only read (cross-attention recomputes
-    its K/V, as the reference does) and MoE routes on the gathered
-    tokens."""
+    its K/V, as the reference does) and MoE routes the batch-sharded
+    tokens by the gathered routing (``moe.moe_forward``)."""
     x = embed_inputs(cfg, params, batch)
     bsz = x.shape[0]
     index = batch["index"]

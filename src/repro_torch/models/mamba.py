@@ -34,7 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig, SSMConfig
@@ -226,8 +226,45 @@ def ssm_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     bh = _groups_to_heads(b_raw, n_heads, s.n_groups)
     ch = _groups_to_heads(c_raw, n_heads, s.n_groups)
 
-    y, _ = ssd_chunked(xh, dt, a, bh, ch, p["D"], s.chunk_size)
+    if isinstance(xh, DTensor):
+        y = _sharded_ssd(xh, dt, a, bh, ch, p["D"], s.chunk_size)
+    else:
+        y, _ = ssd_chunked(xh, dt, a, bh, ch, p["D"], s.chunk_size)
     return _gate_out(p, cfg, y.reshape(bsz, seq, d_in), z, x)
+
+
+def _sharded_ssd(x: DTensor, dt, a, b_ssm, c_ssm, d_skip, chunk: int
+                 ) -> DTensor:
+    """:func:`ssd_chunked`'s ``y`` for DTensor inputs, each rank scanning
+    its own batch rows and heads: the recurrence runs along the sequence
+    and is independent across rows and heads, so x [B,S,H,P], dt
+    [B,S,H], B and C [B,S,H,N] keep the mesh dims that shard their batch
+    and take the heads on every other mesh dim where they divide (the
+    sequence is never split), ``a`` and ``d_skip`` [H] their heads, and
+    :func:`ssd_chunked` runs on the local shards.  ``y`` comes back on
+    that layout; the gradients of ``a`` and ``d_skip`` are partial over
+    the batch's mesh dims."""
+    mesh = x.device_mesh
+    pl, head, ways = [], [], 1
+    for i, q in enumerate(x.placements):
+        n = mesh.size(i)
+        if isinstance(q, Shard) and q.dim == 0:
+            pl.append(q)
+            head.append(Partial())
+        elif x.shape[2] % (ways * n) == 0:
+            ways *= n
+            pl.append(Shard(2))
+            head.append(Shard(0))
+        else:
+            pl.append(Replicate())
+            head.append(Replicate())
+    x_l, dt_l, b_l, c_l = (layers._as_dtensor(t, mesh).redistribute(mesh, pl)
+                           .to_local() for t in (x, dt, b_ssm, c_ssm))
+    a_l, d_l = (layers._as_dtensor(t, mesh).redistribute(mesh, [
+        q if isinstance(q, Shard) else Replicate() for q in head])
+        .to_local(grad_placements=head) for t in (a, d_skip))
+    y, _ = ssd_chunked(x_l, dt_l, a_l, b_l, c_l, d_l, chunk)
+    return DTensor.from_local(y, mesh, pl, run_check=False)
 
 
 def ssm_cache_init(cfg: ArchConfig, batch: int, dtype: torch.dtype, device,
@@ -315,11 +352,14 @@ def _sharded_ssm_decode(p: dict, cfg: ArchConfig, x: torch.Tensor,
                                    layers.whole(p["D"])[h])
     state.to_local().copy_(new_state)
     conv.to_local().copy_(window[:, 1 + sh.lo:1 + sh.lo + sh.n])
+    # this rank's rows and heads [b, h, P] flatten to its rows and a
+    # contiguous block of the d_in channels [b, h*P]: the local shard of
+    # y [B, d_in] on the state's placements (the state is sharded on the
+    # batch and the heads only), so no DTensor is reshaped
     b = state.shape[0]
-    y = DTensor.from_local(y.contiguous(), mesh, list(state.placements),
-                           run_check=False, shape=(b, n_heads, s.head_dim),
-                           stride=(n_heads * s.head_dim, s.head_dim, 1))
-    y = layers._dt_view(y, (b, d_in)).unsqueeze(1)
+    y = DTensor.from_local(y.reshape(y.shape[0], -1).contiguous(), mesh,
+                           list(state.placements), run_check=False,
+                           shape=(b, d_in), stride=(d_in, 1)).unsqueeze(1)
     return _gate_out(p, cfg, y, z, x), cache
 
 
