@@ -102,7 +102,7 @@ Phase 7  Cell E, Mamba-2/SSD serving: mamba2-780m at full width and depth
          in full, verified exact by block_diff; the graph's generations
          equal the eager step's bit for bit.  Each rollback's wall time,
          bytes loaded, patch or full load, and each recapture are
-         recorded, and one decode step is profiled.
+         recorded.
 Phase 7b Cell F, MoE serving: phi3.5-moe-42b-a6.6b at full width (d_model
          4096, 32/8 heads of 128, 16 experts top-2 of d_ff 6400, vocab
          32064, capacity factor 1.25), cut to its first 2 of 32 layers;
@@ -171,8 +171,7 @@ Phase 9  Cell J, decode on DTensor caches: Phase 8's model (SmolLM-360M,
          and caches) and stay within the bf16 bound of the plain graphed
          step on plain copies; one eager sharded step under
          CommDebugMode must issue three all-reduces in each attention
-         layer.  Both sharded steps are profiled (ms a step, busy share).
-         The phase must end within 120 s.
+         layer.  The phase must end within 120 s.
 Phase 10 Cell K, training where the JAX package trains: (a)
          phi3.5-moe-42b-a6.6b at full width, its first layer of 32
          (1,564,553,216 params, bf16, float32 moments: 15.6 GB of state)
@@ -204,8 +203,7 @@ runs only the named phases (2, 6, the serving phases 5, 7, 7b, 7c,
 7d and 9, the distribution phase 8 and the training phase 10, each on a
 store of its own), taken from the ``chip_smoke.py`` and
 ``src/`` under ``DIR`` (default: this tree), and prints one line each of
-wall times, decode ms a step, the graphed step's busy share and peak
-memory.  Two trees are compared by calling it in turns with each tree's
+wall times, decode ms a step and peak memory.  Two trees are compared by calling it in turns with each tree's
 root.
 """
 from __future__ import annotations
@@ -1698,32 +1696,6 @@ def phase6(torch, dev, workdir: Path) -> dict:
 # Phase 5: serving under Kishu (SmolLM-360M, full size)
 # ---------------------------------------------------------------------------
 
-def profile_decode(torch, step, params, caches, tok, n: int) -> dict:
-    """``n`` greedy steps of ``step`` after one untimed step, under
-    ``torch.profiler``: host ms a step, kernel ms a step (the sum of the
-    kernels' device time), launches a step, the busy share (kernel time
-    over the host clock) and the five kernels that take the most time."""
-    from torch.profiler import ProfilerActivity, profile
-    tok, _ = step(params, caches, {"tokens": tok, "index": 0})
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for t in range(1, n + 1):
-            tok, _ = step(params, caches, {"tokens": tok, "index": t})
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    return {"wall_ms": wall_ms / n, "kernel_ms": kernel_ms / n,
-            "kernels": sum(e.count for e in kernels) / n,
-            "busy_share": kernel_ms / wall_ms,
-            "top": [(e.key[:48], round(e.self_device_time_total / 1e3 / n,
-                                       3)) for e in top]}
-
-
 def logit_bound_of(torch, cfg, params) -> float:
     """Bound on |prefill - decode| logits, from bf16: one rounding (2**-8
     relative) per residual add, 2 per layer (3 in an enc-dec decoder,
@@ -2010,15 +1982,6 @@ def serve_cell(torch, dev, workdir: Path, tag: str, cfg, params, *,
                - rec[f"generate_{i}"]["capture_s"]) / gen
         for i in range(n_gen)]
     rec["eager_ms_per_step"] = 1e3 * rec["generate_eager"]["exec_s"] / gen
-    # the card's busy share in a decode step: torch.profiler's kernel time
-    # over the host clock, for the graph and for the eager step, on caches
-    # of their own (the graph captures once more for them)
-    torch.cuda.empty_cache()
-    rec["decode_profile"] = {
-        name: profile_decode(torch, step, params, new_caches(),
-                             prompts[:, :1], min(n, plen + gen - 1))
-        for name, step, n in (("graph", decode, 20),
-                              ("eager", eager_decode, 5))}
     rec["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
     rec["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
     print(f"{tag} {cfg.name}: caches {rec['cache_leaves']} "
@@ -2036,14 +1999,6 @@ def serve_cell(torch, dev, workdir: Path, tag: str, cfg, params, *,
           f"{rec['prefill_decode_mean_abs_err']:.2e}, bound "
           f"{logit_bound:.4f}); last-position argmax agrees on "
           f"{rec['last_argmax_agree']} of {b}", flush=True)
-    for name, prof in rec["decode_profile"].items():
-        check(prof["kernels"] > 0, f"the profiler saw no kernel of the "
-                                   f"{name} decode step")
-        print(f"{tag} decode profile, {name}: {prof['wall_ms']:.3f} ms a "
-              f"step on the host clock, {prof['kernel_ms']:.3f} ms of "
-              f"kernels ({prof['kernels']:.0f} launches a step), busy share "
-              f"{prof['busy_share']:.3f}; largest: {prof['top'][:4]}",
-              flush=True)
     print(f"{tag} decode graph: {rec['captures']} captures in "
           f"{rec['capture_s']:.3f} s; decode-loop prefill "
           f"{rec['decode_prefill_ms_per_step']:.3f} ms a step after "
@@ -2748,18 +2703,12 @@ def phase9(torch, dev, workdir: Path) -> dict:
                                         "index": index})
             return lg.full_tensor()
 
-        serve_step = step_lib.make_decode_step(cfg)
         graphed = step_lib.GraphedDecodeStep(cfg)
 
         def sharded_step(_params, caches, bt):
             # the path: the sharded step replayed from its CUDA graph
             nxt, caches = graphed(dparams, caches,
                                   {**bt, "tokens": dtok(bt["tokens"])})
-            return nxt.full_tensor(), caches
-
-        def eager_step(_params, caches, bt):
-            nxt, caches = serve_step(dparams, caches,
-                                     {**bt, "tokens": dtok(bt["tokens"])})
             return nxt.full_tensor(), caches
 
         prefill_step = step_lib.make_prefill_step(cfg)
@@ -3011,19 +2960,6 @@ def phase9(torch, dev, workdir: Path) -> dict:
         missing = [k for k in SHARD_PATH_KERNELS if rec["launches"][k] <= 0]
         check(not missing, f"phase9: kernels never launched on the sharded "
                            f"path: {missing}")
-        # the card's busy share in a sharded step: the graph (a capture of
-        # its own, on caches of their own) and the eager step
-        profiled = step_lib.GraphedDecodeStep(cfg)
-
-        def profiled_step(_params, caches, bt):
-            nxt, caches = profiled(dparams, caches,
-                                   {**bt, "tokens": dtok(bt["tokens"])})
-            return nxt.full_tensor(), caches
-        rec["decode_profile"] = {
-            "graph": profile_decode(torch, profiled_step, None, new_caches(),
-                                    prompts[:, :1], 20),
-            "eager": profile_decode(torch, eager_step, None, new_caches(),
-                                    prompts[:, :1], 5)}
     finally:
         dist.destroy_process_group()
     rec["peak_allocated"] = torch.cuda.max_memory_allocated()
@@ -3055,12 +2991,6 @@ def phase9(torch, dev, workdir: Path) -> dict:
           f"{logit_bound:.4f}); {rec['step_all_reduce']} all-reduces in one "
           f"eager step; {rec['captures']} capture(s) in the phase, "
           f"{rec['capture_s']:.3f} s", flush=True)
-    for name, prof in rec["decode_profile"].items():
-        print(f"phase9 decode profile, sharded {name}: {prof['wall_ms']:.3f} "
-              f"ms a step on the host clock, {prof['kernel_ms']:.3f} ms of "
-              f"kernels ({prof['kernels']:.0f} launches a step), busy share "
-              f"{prof['busy_share']:.3f}; largest: {prof['top'][:3]}",
-              flush=True)
     print(f"phase9 launches {rec['launches']} (comparisons with plain "
           f"tensors, not counted: {rec['comparison_launches']}), "
           f"{rec['s']:.1f} s, peak allocated {rec['peak_allocated']} "
@@ -3506,8 +3436,6 @@ def only_phases(torch, phases, root: Path) -> int:
                  and isinstance(v, (int, float))}
         if "generate_ms_per_step" in rec:
             times["generate_ms_per_step"] = rec["generate_ms_per_step"]
-            times["busy_share_graph"] = \
-                rec["decode_profile"]["graph"]["busy_share"]
         print(f"timed {name} {root} {json.dumps(times)}", flush=True)
     return 0
 

@@ -23,6 +23,7 @@ from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from repro_torch import obs
 from repro_torch.core import delta as delta_mod
 from repro_torch.core import hashing
 from repro_torch.core.chunkstore import ChunkCache, ChunkStore, chunk_keys
@@ -152,27 +153,32 @@ def _try_delta_manifest(base, det_hex: List[str], prev_manifest,
         # bool chunks are stored raw, as the JAX package stores them (its
         # device path cannot bitcast bool arrays, so they never reach its
         # codec): the stored bytes stay identical across the two packages
-        if put_stored is not None and meta["dtype"] != "bool":
-            items = list(pack.read_chunks_encoded(dirty))
-        else:
-            items = [(i, cdata, None) for i, cdata in pack.read_chunks(dirty)]
+        with obs.span("d2h"):
+            if put_stored is not None and meta["dtype"] != "bool":
+                items = list(pack.read_chunks_encoded(dirty))
+            else:
+                items = [(i, cdata, None)
+                         for i, cdata in pack.read_chunks(dirty)]
         stats.bytes_serialized += sum(len(c) for _, c, _ in items)
         stats.chunks_encoded += pack.codec_chunks_encoded - enc0
         stats.chunks_codec_skipped += pack.codec_chunks_skipped - skip0
         stats.bytes_dev2host += pack.bytes_transferred
     else:
-        for start, stop in delta_mod.coalesce(dirty):
-            lo, hi = start * chunk_bytes, min(stop * chunk_bytes, n)
-            data = reader(lo, hi)
-            stats.bytes_serialized += len(data)
-            for i in range(start, stop):
-                clo = i * chunk_bytes - lo
-                chi = min((i + 1) * chunk_bytes, n) - lo
-                items.append((i, data[clo:chi], None))
+        with obs.span("d2h"):
+            for start, stop in delta_mod.coalesce(dirty):
+                lo, hi = start * chunk_bytes, min(stop * chunk_bytes, n)
+                data = reader(lo, hi)
+                stats.bytes_serialized += len(data)
+                for i in range(start, stop):
+                    clo = i * chunk_bytes - lo
+                    chi = min((i + 1) * chunk_bytes, n) - lo
+                    items.append((i, data[clo:chi], None))
     # keys hash on the pool; the puts then run in chunk order, as before
-    keys = chunk_keys([cdata for _, cdata, _ in items])
-    for (i, cdata, frame), ck in zip(items, keys):
-        _store(i, cdata, frame, ck)
+    with obs.span("chunk_keys"):
+        keys = chunk_keys([cdata for _, cdata, _ in items])
+    with obs.span("enqueue"):
+        for (i, cdata, frame), ck in zip(items, keys):
+            _store(i, cdata, frame, ck)
     return {"members": members, "unserializable": False,
             "base": {"meta": meta, "nbytes": n, "chunks": chunks,
                      "det_hashes": det_hex}}
@@ -195,7 +201,9 @@ def build_manifest(store: ChunkStore, key: CovKey,
     that also sees chunks batched/enqueued but not yet landed in the store,
     so deferred (batched or async) puts never double-write within a delta.
     ``delta_ranges=False`` disables the dirty-range fast path (benchmark
-    baseline — the pre-delta cov-granular writer)."""
+    baseline — the pre-delta cov-granular writer).  Each path records one
+    ``d2h`` span (the bytes off the card), one ``chunk_keys`` span and one
+    ``enqueue`` span (the hand-off to the writer) a co-variable."""
     if has is None:
         has = store.has_chunk
     members = []
@@ -252,24 +260,26 @@ def build_manifest(store: ChunkStore, key: CovKey,
     # keys of the chunks to write, hashed on the pool over views of the blob
     view = memoryview(blob)
     fresh = [i for i, prev in enumerate(reuse) if prev is None]
-    keys = dict(zip(fresh, chunk_keys(
-        [view[i * chunk_bytes:(i + 1) * chunk_bytes] for i in fresh])))
-    for i, prev in enumerate(reuse):
-        lo, hi = i * chunk_bytes, min((i + 1) * chunk_bytes, n)
-        if prev is not None:
-            # unchanged chunk: reference previous storage, no hashing/copy
-            chunks.append({"key": prev["key"], "n": prev["n"]})
-            stats.chunks_reused += 1
-            continue
-        ck = keys[i]
-        if has(ck):
-            stats.chunks_dedup += 1
-        else:
-            data = blob[lo:hi]
-            put(ck, data)
-            stats.chunks_written += 1
-            stats.bytes_written += len(data)
-        chunks.append({"key": ck, "n": hi - lo})
+    with obs.span("chunk_keys"):
+        keys = dict(zip(fresh, chunk_keys(
+            [view[i * chunk_bytes:(i + 1) * chunk_bytes] for i in fresh])))
+    with obs.span("enqueue"):
+        for i, prev in enumerate(reuse):
+            lo, hi = i * chunk_bytes, min((i + 1) * chunk_bytes, n)
+            if prev is not None:
+                # unchanged: reference previous storage, no hashing/copy
+                chunks.append({"key": prev["key"], "n": prev["n"]})
+                stats.chunks_reused += 1
+                continue
+            ck = keys[i]
+            if has(ck):
+                stats.chunks_dedup += 1
+            else:
+                data = blob[lo:hi]
+                put(ck, data)
+                stats.chunks_written += 1
+                stats.bytes_written += len(data)
+            chunks.append({"key": ck, "n": hi - lo})
 
     return {"members": members, "unserializable": False,
             "base": {"meta": meta, "nbytes": n, "chunks": chunks,

@@ -23,7 +23,6 @@ is not a power of two, a changed shape, a non-aligned segment.
 """
 from __future__ import annotations
 
-import contextlib
 import logging
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
@@ -31,6 +30,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.core.serialize import global_image, tensor_bytes_u8
 
 _log = logging.getLogger(__name__)
@@ -46,16 +46,11 @@ _kernel_fallbacks = 0
 _fallback_logged = False
 
 
-def _active_obs():
-    from repro_torch import obs as _obs
-    return _obs.active()
-
-
 def note_kernel_fallback(where: str, err: Exception) -> None:
     """Record one degradation to a slower path."""
     global _kernel_fallbacks, _fallback_logged
     _kernel_fallbacks += 1          # process-wide shim stays monotonic
-    o = _active_obs()
+    o = obs.active()
     if o is not None:
         first = o.note_kernel_fallback(where)
     else:
@@ -71,7 +66,7 @@ def note_kernel_fallback(where: str, err: Exception) -> None:
 def kernel_fallbacks() -> int:
     """Total degradations — scoped to the active session's metrics registry
     when one is executing; otherwise the process-wide total."""
-    o = _active_obs()
+    o = obs.active()
     if o is not None:
         return o.kernel_fallbacks()
     return _kernel_fallbacks
@@ -163,10 +158,7 @@ def device_delta_pack(base: Any, prev_hashes, chunk_bytes: int):
     if prev.shape[0] != n_chunks:
         return None                      # structure changed: no valid diff
     from repro_torch.kernels.delta_pack.ops import delta_pack
-    o = _active_obs()
-    span = o.span("delta_pack", nbytes=nbytes) if o is not None \
-        else contextlib.nullcontext()
-    with span:
+    with obs.span("delta_pack", nbytes=nbytes):
         return delta_pack(base, prev, chunk_bytes)
 
 
@@ -258,11 +250,9 @@ def patch_device_chunks(base: Any, segs: Sequence[Tuple[int, bytes]],
         idx.append(i)
         blobs.append(data)
     from repro_torch.kernels.patch_scatter.ops import scatter_chunks
-    o = _active_obs()
-    span = o.span("scatter_dev", chunks=len(idx)) if o is not None \
-        else contextlib.nullcontext()
-    with span:
+    with obs.span("scatter_dev", chunks=len(idx)):
         moved = scatter_chunks(base, idx, blobs, chunk_bytes)
+    o = obs.active()
     if o is not None:
         o.registry.counter("kishu_h2d_bytes_total").inc(moved)
     return moved

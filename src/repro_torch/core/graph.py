@@ -18,6 +18,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
+from repro_torch import obs
 from repro_torch.core.chunkstore import ChunkStore
 from repro_torch.core.covariable import CovKey
 
@@ -229,19 +230,21 @@ class CheckpointGraph:
     def _persist(self, node: CommitNode) -> None:
         if self.read_only:
             raise RuntimeError("a read-only graph does not publish commits")
-        doc = node.to_doc()
-        self._meta_bytes += len(json.dumps(doc))
-        self.refs.add(node.manifests)
-        # the refcount doc travels in the same atomic batch as the commit
-        # and HEAD: a torn publish (or its crash-recovery replay) can never
-        # leave counts disagreeing with the published graph.  Order is
-        # refs -> commit doc -> HEAD: on a decomposing backend the commit
-        # doc still lands immediately before HEAD, preserving the
-        # invariant that a torn publish never leaves HEAD naming an absent
-        # commit (recovery squares the refs ledger either way)
-        docs = {REFS_DOC: self.refs.to_doc(),
-                f"commit/{node.commit_id}": doc,
-                "HEAD": {"head": self.head, "seq": self._seq}}
+        with obs.span("meta_docs"):
+            doc = node.to_doc()
+            self._meta_bytes += len(json.dumps(doc))
+            self.refs.add(node.manifests)
+            # the refcount doc travels in the same atomic batch as the
+            # commit and HEAD: a torn publish (or its crash-recovery
+            # replay) can never leave counts disagreeing with the published
+            # graph.  Order is refs -> commit doc -> HEAD: on a decomposing
+            # backend the commit doc still lands immediately before HEAD,
+            # preserving the invariant that a torn publish never leaves
+            # HEAD naming an absent commit (recovery squares the refs
+            # ledger either way)
+            docs = {REFS_DOC: self.refs.to_doc(),
+                    f"commit/{node.commit_id}": doc,
+                    "HEAD": {"head": self.head, "seq": self._seq}}
         if self.engine is not None:
             self.engine.commit(docs)
         else:

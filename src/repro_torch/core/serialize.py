@@ -48,6 +48,8 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
+
 
 class SerializationError(Exception):
     """Raised when a leaf cannot be serialized (paper §5.1: skip storage,
@@ -215,7 +217,10 @@ def tensor_bytes_u8(t: torch.Tensor) -> torch.Tensor:
 
 
 def tensor_to_bytes(t: torch.Tensor) -> bytes:
-    return tensor_bytes_u8(t).cpu().numpy().tobytes()
+    """The tensor's byte image as ``bytes``, under a ``d2h`` span: the copy
+    off the card (or a DTensor's gather), its wait and the host copy."""
+    with obs.span("d2h"):
+        return tensor_bytes_u8(t).cpu().numpy().tobytes()
 
 
 def leaf_to_bytes(x: Any) -> Tuple[bytes, dict]:
@@ -253,7 +258,8 @@ def tensor_from_bytes(data, dtype: str, shape,
     host: straight into the tensor on the CPU; on a card into pinned
     memory, from which it is copied to the card asynchronously on the
     current stream (the caching host allocator keeps the pinned block until
-    that copy is done)."""
+    that copy is done).  The staging, the copies and the upload's enqueue
+    run under a ``stage_h2d`` span."""
     out = torch.empty(list(shape), dtype=torch_dtype(dtype), device=device)
     dst = tensor_bytes_u8(out)
     parts = _byte_parts(data)
@@ -264,15 +270,16 @@ def tensor_from_bytes(data, dtype: str, shape,
             f"({dst.numel()} bytes)")
     if not nbytes:
         return out
-    stage = torch.empty(dst.numel(), dtype=torch.uint8, pin_memory=True) \
-        if out.is_cuda else dst
-    host = stage.numpy()
-    off = 0
-    for p in parts:
-        host[off:off + p.size] = p
-        off += p.size
-    if out.is_cuda:
-        dst.copy_(stage, non_blocking=True)
+    with obs.span("stage_h2d", nbytes=nbytes):
+        stage = torch.empty(dst.numel(), dtype=torch.uint8,
+                            pin_memory=True) if out.is_cuda else dst
+        host = stage.numpy()
+        off = 0
+        for p in parts:
+            host[off:off + p.size] = p
+            off += p.size
+        if out.is_cuda:
+            dst.copy_(stage, non_blocking=True)
     return out
 
 

@@ -22,13 +22,13 @@ count, plus the rows or planes actually copied.
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import hashing
 from repro_torch.core.serialize import tensor_bytes_u8
 from repro_torch.kernels import _lib
@@ -39,14 +39,6 @@ PROBE_SEG_BYTES = 4 << 20       # the codec probe samples the dirty rows of
                                 # one such window, as the JAX wrapper's
                                 # per-launch segment, so both packages pick
                                 # the codec for the same chunks
-
-
-def _obs_span(name: str, **args):
-    """Span on the active SessionObs, or a no-op outside a session."""
-    from repro_torch import obs as _obs
-    o = _obs.active()
-    return o.span(name, **args) if o is not None \
-        else contextlib.nullcontext()
 
 
 def d2h_segments(t: torch.Tensor, seg_rows: int
@@ -232,7 +224,7 @@ class DeltaPack:
             for ci, data in self.read_chunks(want):
                 yield ci, data, None
             return
-        with _obs_span("encode_dev", rows=self.count):
+        with obs.span("encode_dev", rows=self.count):
             masks, planes_dev, gw = codec_ops.encode_rows(self.buf)
         planes = np.concatenate(
             [h for _, h in d2h_segments(planes_dev, 1 << 20)]

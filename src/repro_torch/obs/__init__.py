@@ -52,6 +52,13 @@ def active() -> Optional["SessionObs"]:
     return _active_obs.get()
 
 
+def span(name: str, **args):
+    """A span on the active SessionObs; the shared ``NULL_SPAN`` outside a
+    session or with its tracing off."""
+    o = _active_obs.get()
+    return o.span(name, **args) if o is not None else NULL_SPAN
+
+
 class SessionObs:
     """Per-session observability handle: tracer + metrics registry."""
 
@@ -104,7 +111,7 @@ class SessionObs:
 
 
 __all__ = [
-    "SessionObs", "active", "Tracer", "SpanRecord", "chrome_trace",
+    "SessionObs", "active", "span", "Tracer", "SpanRecord", "chrome_trace",
     "spans_from_doc", "NULL_SPAN", "MetricsRegistry", "Counter", "Gauge",
     "Histogram", "render", "LATENCY_BASE_S", "SIZE_BASE_BYTES",
     "InstrumentedStore", "instrument_tree", "backend_label",

@@ -14,6 +14,13 @@ Disabled cost is one attribute check plus returning a shared no-op context
 manager — no allocation, no clock read — so the tracer can stay wired into
 every hot path unconditionally.
 
+While a ``torch.profiler`` records, an enabled span also enters a
+``record_function`` range of its own name on its own thread, so the
+pipeline's stages sit in the profiler's trace, on its clock, around the
+kernels they launched.  Without a profiler that costs one check a span; a
+span that a profiler's start or stop crosses opens no range, or closes the
+one it opened (closing after the stop is a no-op for the profiler).
+
 Export is Chrome trace-event JSON (``ph: "X"`` complete events, µs
 timestamps), loadable in Perfetto / ``chrome://tracing`` with no deps.
 """
@@ -25,6 +32,9 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, List, Optional
+
+import torch
+from torch.autograd.profiler import record_function
 
 # current span id for the *calling* context; shared across tracers — span ids
 # are globally unique per process so a stale id from another tracer can never
@@ -70,7 +80,7 @@ NULL_SPAN = _NullSpan()
 
 class _Span:
     __slots__ = ("_tracer", "name", "args", "span_id", "parent_id",
-                 "_t0", "_token")
+                 "_t0", "_token", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, args: Dict[str, Any]):
         self._tracer = tracer
@@ -80,15 +90,22 @@ class _Span:
         self.parent_id: Optional[int] = None
         self._t0 = 0.0
         self._token = None
+        self._range = None
 
     def __enter__(self) -> "_Span":
         self.parent_id = _current_span.get()
         self._token = _current_span.set(self.span_id)
+        if torch.autograd._profiler_enabled():
+            self._range = record_function(self.name)
+            self._range.__enter__()
         self._t0 = time.monotonic()
         return self
 
     def __exit__(self, *exc) -> bool:
         t1 = time.monotonic()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         if self._token is not None:
             _current_span.reset(self._token)
         self._tracer._record(SpanRecord(

@@ -18,6 +18,7 @@ import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch import obs
 from repro_torch.core.namespace import flatten_tree, unflatten_tree
 from repro_torch.core.session import resolve_device
 from repro_torch.models import lm
@@ -361,42 +362,43 @@ class GraphedDecodeStep:
 
     def _capture(self, params, caches, inputs, leaves, key) -> None:
         t0 = time.perf_counter()
-        # drop the old graph and its outputs, so its pool can be freed
-        self._key = self._graph = self._logits = self._next = None
-        dev = _local(next(iter(inputs.values()))).device
-        self._inputs = {k: _like(v, torch.empty(
-            tuple(_local(v).shape),
-            dtype=torch.int32 if k == "tokens" else v.dtype,
-            device=dev).copy_(_local(v))) for k, v in inputs.items()}
-        index = torch.zeros((), dtype=torch.int32, device=dev)
-        sharded = [t for t in (*inputs.values(), *leaves)
-                   if isinstance(t, DTensor)]
-        if sharded:                     # replicated over the step's mesh
-            mesh = sharded[0].device_mesh
-            index = DTensor.from_local(index, mesh,
-                                       [Replicate()] * mesh.ndim,
-                                       run_check=False)
-        self._index = index
-        static = {**self._inputs, "index": self._index}
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            scratch = tree_map(torch.clone, caches)
-            outs = _greedy_step(self.cfg, params, scratch, static)
-            for x in outs:
-                _settled(x)
-            del scratch, outs
-        main.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: the session's pool threads may touch the card (a
-        # pinned copy, an allocation) while a cell captures, and NCCL's
-        # watchdog polls its events
-        with torch.no_grad(), torch.cuda.graph(
-                graph, capture_error_mode="thread_local"):
-            self._logits, self._next = (
-                _settled(x) for x in _greedy_step(self.cfg, params, caches,
-                                                  static))
-        self._graph, self._key = graph, key
-        self.captures += 1
+        with obs.span("capture"):
+            # drop the old graph and its outputs, so its pool can be freed
+            self._key = self._graph = self._logits = self._next = None
+            dev = _local(next(iter(inputs.values()))).device
+            self._inputs = {k: _like(v, torch.empty(
+                tuple(_local(v).shape),
+                dtype=torch.int32 if k == "tokens" else v.dtype,
+                device=dev).copy_(_local(v))) for k, v in inputs.items()}
+            index = torch.zeros((), dtype=torch.int32, device=dev)
+            sharded = [t for t in (*inputs.values(), *leaves)
+                       if isinstance(t, DTensor)]
+            if sharded:                     # replicated over the step's mesh
+                mesh = sharded[0].device_mesh
+                index = DTensor.from_local(index, mesh,
+                                           [Replicate()] * mesh.ndim,
+                                           run_check=False)
+            self._index = index
+            static = {**self._inputs, "index": self._index}
+            main = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                scratch = tree_map(torch.clone, caches)
+                outs = _greedy_step(self.cfg, params, scratch, static)
+                for x in outs:
+                    _settled(x)
+                del scratch, outs
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the session's pool threads may touch the card (a
+            # pinned copy, an allocation) while a cell captures, and NCCL's
+            # watchdog polls its events
+            with torch.no_grad(), torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
+                self._logits, self._next = (
+                    _settled(x) for x in _greedy_step(self.cfg, params, caches,
+                                                      static))
+            self._graph, self._key = graph, key
+            self.captures += 1
         self.capture_s += time.perf_counter() - t0

@@ -931,6 +931,56 @@ def test_graphed_decode_recaptures_after_a_full_load(dev):
     sess.close()
 
 
+def test_graphed_decode_capture_span_inside_exec(dev):
+    """In a traced session a recapture (after a checkout that loads a
+    cache leaf in full) records one ``capture`` span inside the cell's
+    ``exec`` span, and ``capture_s`` grows by about its length."""
+    from repro_torch.core import KishuSession, MemoryStore
+    from repro_torch.models import lm
+    from repro_torch.train.step import GraphedDecodeStep
+    cfg, params = _serve_setup(dev)
+    step = GraphedDecodeStep(cfg)
+    b, prefix, gen = 2, 6, 5        # as the recapture test above
+
+    def fill(ns):
+        caches = lm.init_caches(cfg, b, prefix + 2 * gen)
+        tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        for t in range(prefix):
+            tok, caches = step(params, caches, {"tokens": tok, "index": t})
+        ns.set_tree("caches", caches)
+        ns["last_tok"] = tok
+
+    def generate(ns):
+        caches, tok = ns.get_tree("caches"), ns["last_tok"]
+        for t in range(gen):
+            tok, caches = step(params, caches, {"tokens": tok,
+                                                "index": prefix + t})
+        ns.set_tree("caches", caches)
+        ns["last_tok"] = tok
+
+    sess = KishuSession(MemoryStore(), chunk_bytes=1 << 12, trace=True)
+    sess.register("fill", fill)
+    sess.register("generate", generate)
+    sess.init_state({})
+    c0 = sess.run("fill")
+    sess.run("generate")
+    st = sess.checkout(c0)
+    assert st.covs_loaded > 0
+    tracer = sess.obs.tracer
+    tracer.clear()
+    captures, capture_s = step.captures, step.capture_s
+    sess.run("generate")
+    assert step.captures == captures + 1
+    spans = list(tracer.spans)
+    by_id = {r.span_id: r for r in spans}
+    (cap,) = [r for r in spans if r.name == "capture"]
+    ex = by_id[cap.parent_id]
+    assert ex.name == "exec"
+    assert ex.t0_s <= cap.t0_s and cap.t0_s + cap.dur_s <= ex.t0_s + ex.dur_s
+    assert 0 < cap.dur_s <= step.capture_s - capture_s
+    sess.close()
+
+
 def test_graphed_decode_failures_raise(dev, monkeypatch):
     """A failed capture or replay raises; the eager step never runs in the
     graph's place, so the live caches stay as they were."""
