@@ -31,7 +31,8 @@ from repro_torch.core.covariable import CovKey, LeafRecord
 from repro_torch.core.graph import key_str
 from repro_torch.core.serialize import (SerializationError, alias_key,
                                         base_of, leaf_meta, leaf_nbytes,
-                                        leaf_to_bytes)
+                                        leaf_to_bytes, tensor_bytes_u8)
+from repro_torch.core.staging import StagingRing
 
 
 @dataclass
@@ -51,6 +52,9 @@ class WriteStats:
                                     # frames crossed PCIe, not raw rows)
     chunks_codec_skipped: int = 0   # probe said incompressible → raw
     kernel_fallbacks: int = 0       # device-kernel → host degradations
+    covs_streamed: int = 0          # covs written whole through the
+                                    # writer's staging ring (CUDA bases)
+    bytes_streamed: int = 0         # their bytes
     unserializable: int = 0
     wall_s: float = 0.0
 
@@ -194,16 +198,22 @@ def build_manifest(store: ChunkStore, key: CovKey,
                    delta_ranges: bool = True,
                    packs: Optional[Dict[int, Any]] = None,
                    put_stored: Optional[Callable[[str, bytes, bytes],
-                                                 None]] = None) -> dict:
+                                                 None]] = None,
+                   ring: Optional[StagingRing] = None) -> dict:
     """Serialize one co-variable into a manifest + chunk puts.
 
     ``has`` is the CAS-dedup membership test; the writer passes a variant
     that also sees chunks batched/enqueued but not yet landed in the store,
     so deferred (batched or async) puts never double-write within a delta.
     ``delta_ranges=False`` disables the dirty-range fast path (benchmark
-    baseline — the pre-delta cov-granular writer).  Each path records one
-    ``d2h`` span (the bytes off the card), one ``chunk_keys`` span and one
-    ``enqueue`` span (the hand-off to the writer) a co-variable."""
+    baseline — the pre-delta cov-granular writer).  A base that ``ring``
+    takes (the writer's ring takes CUDA tensors) and that the dirty-range
+    path declines streams through the ring, its chunks keyed and handed
+    off segment by segment; any other leaf is serialized whole first.  The
+    chunks and the manifest are the same either way.  Each path records
+    ``d2h`` spans (the bytes off the card), ``chunk_keys`` spans and
+    ``enqueue`` spans (the hand-off to the writer): one of each a
+    co-variable, or, streaming, one of each a segment."""
     if has is None:
         has = store.has_chunk
     members = []
@@ -229,8 +239,14 @@ def build_manifest(store: ChunkStore, key: CovKey,
         if man is not None:
             return man
 
+    streamed = ring is not None and ring.takes(base)
     try:
-        blob, meta = leaf_to_bytes(base)
+        if streamed:
+            meta, u8 = leaf_meta(base), tensor_bytes_u8(base)
+            n = u8.numel()
+        else:
+            blob, meta = leaf_to_bytes(base)
+            n = len(blob)
     except SerializationError:
         stats.unserializable += 1
         return {"members": members, "unserializable": True}
@@ -243,8 +259,6 @@ def build_manifest(store: ChunkStore, key: CovKey,
             if i < len(prev_det):
                 prev_chunks[i] = {"det": prev_det[i], **c}
 
-    chunks = []
-    n = len(blob)
     n_chunks = max(-(-n // chunk_bytes), 1) if n else 0
     stats.bytes_serialized += n
     stats.bytes_logical += n
@@ -257,29 +271,38 @@ def build_manifest(store: ChunkStore, key: CovKey,
         return None
 
     reuse = [unchanged(i) for i in range(n_chunks)]
-    # keys of the chunks to write, hashed on the pool over views of the blob
-    view = memoryview(blob)
-    fresh = [i for i, prev in enumerate(reuse) if prev is None]
-    with obs.span("chunk_keys"):
-        keys = dict(zip(fresh, chunk_keys(
-            [view[i * chunk_bytes:(i + 1) * chunk_bytes] for i in fresh])))
-    with obs.span("enqueue"):
-        for i, prev in enumerate(reuse):
-            lo, hi = i * chunk_bytes, min((i + 1) * chunk_bytes, n)
-            if prev is not None:
-                # unchanged: reference previous storage, no hashing/copy
-                chunks.append({"key": prev["key"], "n": prev["n"]})
-                stats.chunks_reused += 1
-                continue
-            ck = keys[i]
-            if has(ck):
-                stats.chunks_dedup += 1
-            else:
-                data = blob[lo:hi]
-                put(ck, data)
-                stats.chunks_written += 1
-                stats.bytes_written += len(data)
-            chunks.append({"key": ck, "n": hi - lo})
+    # unchanged chunks reference previous storage: no copy, no key
+    chunks: List[Optional[dict]] = [
+        None if prev is None else {"key": prev["key"], "n": prev["n"]}
+        for prev in reuse]
+    stats.chunks_reused += sum(c is not None for c in chunks)
+
+    def hand_off(fresh: List[Tuple[int, Any, str]]) -> None:
+        """Dedup or put each ``(index, bytes or view, key)``, in order."""
+        with obs.span("enqueue"):
+            for i, data, ck in fresh:
+                if has(ck):
+                    stats.chunks_dedup += 1
+                else:
+                    data = bytes(data)   # a view's one copy; free for bytes
+                    put(ck, data)
+                    stats.chunks_written += 1
+                    stats.bytes_written += len(data)
+                chunks[i] = {"key": ck, "n": len(data)}
+
+    if streamed:
+        stats.covs_streamed += 1
+        stats.bytes_streamed += n
+        ring.stream(u8, chunk_bytes, [c is None for c in chunks], hand_off)
+    else:
+        # keys of the chunks to write, hashed on the pool over views of
+        # the blob
+        view = memoryview(blob)
+        fresh = [(i, view[i * chunk_bytes:(i + 1) * chunk_bytes])
+                 for i, c in enumerate(chunks) if c is None]
+        with obs.span("chunk_keys"):
+            keys = chunk_keys([v for _, v in fresh])
+        hand_off([(i, v, ck) for (i, v), ck in zip(fresh, keys)])
 
     return {"members": members, "unserializable": False,
             "base": {"meta": meta, "nbytes": n, "chunks": chunks,
@@ -311,6 +334,8 @@ class CheckpointWriter:
         # dirty-range serialization; False = pre-delta full-blob writer
         # (benchmark baseline)
         self.delta_ranges = True
+        # reused pinned staging for CUDA bases written whole
+        self.ring = StagingRing()
         # WAL hook (txn.TxnEngine.journal_chunks): called with a batch's
         # keys immediately before the backend put, so a crashed commit's
         # chunks are journaled and recovery can roll them back exactly
@@ -487,8 +512,14 @@ class CheckpointWriter:
                                      stats, self._put, self._has,
                                      delta_ranges=self.delta_ranges,
                                      packs=packs,
-                                     put_stored=self._put_stored)
+                                     put_stored=self._put_stored,
+                                     ring=self.ring)
                 manifests[key_str(key)] = man
+        if self.obs is not None and stats.covs_streamed:
+            reg = self.obs.registry
+            reg.counter("kishu_covs_streamed_total").inc(stats.covs_streamed)
+            reg.counter("kishu_bytes_streamed_total").inc(
+                stats.bytes_streamed)
         self._flush_batch()                  # sync mode: durable on return
         if self.async_write and self.write_deadline_s:
             # monotonic, never wall-clock: an NTP step would expire this

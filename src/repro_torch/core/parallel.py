@@ -34,7 +34,8 @@ from __future__ import annotations
 
 import os
 import threading
-from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
+from concurrent.futures import (FIRST_COMPLETED, Future, ThreadPoolExecutor,
+                                wait)
 from typing import Any, Callable, Iterable, Iterator, List, Optional, Sequence
 
 DEFAULT_IO_THREADS = min(8, max(4, os.cpu_count() or 1))
@@ -168,6 +169,20 @@ class serial_section:
 def _tagged(fn: Callable, item: Any) -> Any:
     _worker_state.is_worker = True
     return fn(item)
+
+
+def submit(fn: Callable[..., Any], *args: Any) -> Future:
+    """``fn(*args)`` on the shared pool, as an I/O worker.  Where
+    ``map_parallel`` would run serially (one I/O thread, or called from a
+    worker) it runs at once on the calling thread, its future done."""
+    if resolve_io_threads() > 1 and not in_io_worker():
+        return _shared_pool().submit(_tagged, lambda a: fn(*a), args)
+    fut: Future = Future()
+    try:
+        fut.set_result(fn(*args))
+    except Exception as e:  # noqa: BLE001 — raised again by .result()
+        fut.set_exception(e)
+    return fut
 
 
 def map_parallel(fn: Callable[[Any], Any], items: Sequence[Any],

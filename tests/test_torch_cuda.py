@@ -352,6 +352,61 @@ def test_cuda_session_matches_cpu_session(dev):
             assert torch.equal(out["cpu"][i][n], out["cuda"][i][n]), n
 
 
+def test_full_commit_streams_through_the_pinned_ring(dev):
+    """A CUDA base several ring-lengths long, written whole, streams
+    through the writer's pinned ring: its manifest and stored chunks equal
+    those of the same values committed as a CPU tensor.  Its last write is
+    queued on the current stream behind a long sleep, and the tensor is
+    overwritten there straight after the commit returns: the side stream's
+    copies waited for the write, and the stored chunks hold the committed
+    values."""
+    from repro_torch.core import KishuSession, MemoryStore, staging
+    from repro_torch.core.checkpoint import WriteStats, build_manifest
+    from repro_torch.core.covariable import RecordBuilder
+    from repro_torch.core.namespace import Namespace
+
+    cb = 1 << 20
+    n = (6 * staging.SEG_BYTES + 3 * cb) // 4 + 123       # float32, > ring
+    vals = torch.randn(n, generator=torch.Generator().manual_seed(7))
+    want_store = MemoryStore()
+    want = build_manifest(want_store, ("x",),
+                          [RecordBuilder(cb).build("x", vals, {})],
+                          Namespace({"x": vals}), cb, None, WriteStats(),
+                          want_store.put_chunk)
+
+    src = vals.to(dev)
+    rec = RecordBuilder(cb).build("x", src, {})
+    x = torch.zeros(n, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    x.copy_(src)
+    store, stats, ring = MemoryStore(), WriteStats(), staging.StagingRing()
+    got = build_manifest(store, ("x",), [rec], Namespace({"x": x}), cb,
+                         None, stats, store.put_chunk, ring=ring)
+    x.fill_(-1.0)
+    torch.cuda.synchronize()
+    assert got == want and store.chunks == want_store.chunks
+    assert (stats.covs_streamed, stats.bytes_streamed) == (1, 4 * n)
+    assert ring._host.is_pinned()
+
+    sess = KishuSession(MemoryStore(), chunk_bytes=cb, cache_bytes=0)
+
+    def init(ns):
+        ns["x"] = src.clone()
+
+    sess.register("init", init)
+    sess.init_state({})
+    sess.run("init")
+    sess.ns["x"].fill_(-1.0)
+    torch.cuda.synchronize()
+    assert sess.last_run.write.covs_streamed == 1
+    assert sess.obs.registry.counter_total("kishu_bytes_streamed_total") \
+        == 4 * n
+    for k, v in want_store.chunks.items():
+        assert sess.store.get_chunk(k) == v
+    sess.close()
+
+
 # ---------------------------------------------------------------------------
 # block_diff and the trainer on the card
 # ---------------------------------------------------------------------------
