@@ -213,7 +213,10 @@ def build_manifest(store: ChunkStore, key: CovKey,
     chunks and the manifest are the same either way.  Each path records
     ``d2h`` spans (the bytes off the card), ``chunk_keys`` spans and
     ``enqueue`` spans (the hand-off to the writer): one of each a
-    co-variable, or, streaming, one of each a segment."""
+    co-variable, or, streaming, one of each a segment.  They nest in a
+    ``write_delta`` span around the dirty-range attempt (taken or
+    declined) or a ``write_whole`` span around a whole write (streamed or
+    plain)."""
     if has is None:
         has = store.has_chunk
     members = []
@@ -232,13 +235,25 @@ def build_manifest(store: ChunkStore, key: CovKey,
     # chunk-granular fast path: det-hash compare first, then serialize /
     # transfer only the dirty ranges (bytes_serialized ~ dirty bytes)
     if delta_ranges:
-        man = _try_delta_manifest(base, det_hex, prev_manifest, chunk_bytes,
-                                  stats, put, has, members,
-                                  pack=(packs or {}).get(alias_key(base)),
-                                  put_stored=put_stored)
+        with obs.span("write_delta"):
+            man = _try_delta_manifest(
+                base, det_hex, prev_manifest, chunk_bytes, stats, put, has,
+                members, pack=(packs or {}).get(alias_key(base)),
+                put_stored=put_stored)
         if man is not None:
             return man
+    with obs.span("write_whole"):
+        return _whole_manifest(base, det_hex, members, chunk_bytes,
+                               prev_manifest, stats, put, has, ring)
 
+
+def _whole_manifest(base, det_hex: List[str], members: List[dict],
+                    chunk_bytes: int, prev_manifest: Optional[dict],
+                    stats: WriteStats, put, has,
+                    ring: Optional[StagingRing]) -> dict:
+    """The co-variable written whole: streamed through ``ring`` where it
+    takes the base, else serialized first; chunks whose detection hash is
+    unchanged since ``prev_manifest`` are referenced, not written."""
     streamed = ring is not None and ring.takes(base)
     try:
         if streamed:

@@ -4,7 +4,9 @@ forward only (the prefill's attention).
 ``flash_attention(q, k, v, causal=True)`` takes q ``[B,S,Hq,hd]`` and k, v
 ``[B,S,Hkv,hd]`` with ``Hq % Hkv == 0`` and returns ``[B,S,Hq,hd]`` in q's
 dtype: the contract of the JAX package's
-``kernels/flash_attention/ops.py:flash_attention``.  CUDA tensors go
+``kernels/flash_attention/ops.py:flash_attention``.  ``softmax_scale``
+(default ``1/sqrt(hd)``, the JAX contract's) scales the scores, as the
+kernel's own argument does.  CUDA tensors go
 through the CUDA kernel, which reads them in place through their strides
 (no transposed copies, no repeated K/V) and launches or raises; CPU tensors
 go through the plain torch version below.  Unlike the JAX wrapper, any S
@@ -20,7 +22,7 @@ requires grad raises instead of returning a result without a gradient.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,7 +77,8 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor, *, causal: bool = True
+                          v: torch.Tensor, *, causal: bool = True,
+                          softmax_scale: Optional[float] = None
                           ) -> torch.Tensor:
     """Plain torch version (the JAX package's ``flash_attention_ref`` with
     its GQA repeat): float32 scores, the finite causal mask, softmax,
@@ -85,7 +88,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     if n_rep > 1:
         k = torch.repeat_interleave(k, n_rep, dim=2)
         v = torch.repeat_interleave(v, n_rep, dim=2)
-    scale = 1.0 / np.sqrt(hd)
+    scale = 1.0 / np.sqrt(hd) if softmax_scale is None else softmax_scale
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
@@ -97,7 +100,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, *, causal: bool = True,
-                         route: str = "") -> torch.Tensor:
+                         route: str = "",
+                         softmax_scale: Optional[float] = None
+                         ) -> torch.Tensor:
     """Launch the kernel on CUDA tensors of one card and one dtype
     (float32 or bfloat16), any strides, head dim up to 256.  Returns a
     new contiguous ``[B,S,Hq,hd]`` tensor on the card.  ``route`` forces
@@ -122,7 +127,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    scale = float(1.0 / np.sqrt(hd))
+    scale = float(1.0 / np.sqrt(hd) if softmax_scale is None
+                  else softmax_scale)
     with torch.cuda.device(dev):
         if route == "tc":
             _lib.call("kishu_flash_attention_tc", q.data_ptr(),
@@ -141,13 +147,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    softmax_scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,S,Hq,hd]; k, v: [B,S,Hkv,hd] (Hq % Hkv == 0) -> [B,S,Hq,hd]."""
     _shape(q, k, v)
     _forward_only(q, k, v)
     if q.is_cuda and k.is_cuda and v.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal)
+        return flash_attention_cuda(q, k, v, causal=causal,
+                                    softmax_scale=softmax_scale)
     if q.device.type == k.device.type == v.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     softmax_scale=softmax_scale)
     raise ValueError(f"flash_attention: unsupported devices {q.device}, "
                      f"{k.device}, {v.device}")

@@ -8,6 +8,14 @@ MoE feed-forwards, hybrid stacks, the encoder-decoder with
 cross-attention, precomputed input embeddings (the stubbed audio and
 vision frontends) and the MTP block.  ``configs`` registers all ten
 architectures.
+
+The port has fields of its own, which the JAX package lacks: the four
+scalars of Granite 4.0's residual and attention paths
+(``embedding_multiplier``, ``attention_multiplier``,
+``residual_multiplier``, ``logits_scaling``) and the ``rope_type`` value
+``"nope"`` (attention with no positional encoding at all).  At their
+neutral defaults the model computes what it computed without them, so
+the ten shared architectures keep the JAX package's numbers.
 """
 from __future__ import annotations
 
@@ -61,7 +69,9 @@ class ArchConfig:
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // n_heads
     qk_norm: bool = False
-    rope_type: str = "standard"   # standard | mrope | none
+    # standard | mrope | none (sinusoidal absolute positions added to the
+    # embeddings) | nope (no positions: attention is order-blind but causal)
+    rope_type: str = "standard"
     rope_theta: float = 10_000.0
     mrope_sections: Tuple[int, int, int] = (16, 24, 24)  # t/h/w split of head_dim/2
     tie_embeddings: bool = False
@@ -81,6 +91,11 @@ class ArchConfig:
     vocab_pad_multiple: int = 256
     # Source provenance, for the config files' docstrings.
     source: str = ""
+    # ---- the port's own fields (Granite 4.0); neutral by default ----
+    embedding_multiplier: float = 1.0   # x = multiplier * embed[token]
+    attention_multiplier: float = 0.0   # softmax scale; 0 -> 1/sqrt(head_dim)
+    residual_multiplier: float = 1.0    # x += multiplier * sublayer(x)
+    logits_scaling: float = 1.0         # logits = unembed(x) / scaling
 
     # ---- derived ----
     @property
@@ -116,7 +131,22 @@ class ArchConfig:
         return ("attn",) * self.n_layers
 
     def replace(self, **kw) -> "ArchConfig":
+        """A copy with ``kw`` changed.  Values as JSON gives them are taken
+        too: a dict for ``mla`` / ``moe`` / ``ssm`` becomes its dataclass,
+        a list for ``hybrid_pattern`` / ``mrope_sections`` a tuple."""
+        for k, sub in _NESTED.items():
+            if isinstance(kw.get(k), dict):
+                kw[k] = sub(**kw[k])
+        for k in _TUPLES:
+            if isinstance(kw.get(k), list):
+                kw[k] = tuple(kw[k])
         return dataclasses.replace(self, **kw)
+
+    @property
+    def attn_scale(self) -> Optional[float]:
+        """The configured softmax scale; None where it is the default
+        1/sqrt(head_dim), so the default path runs unchanged."""
+        return self.attention_multiplier or None
 
     # ---- parameter counting (for 6ND roofline terms) ----
     def param_counts(self) -> dict:
@@ -190,6 +220,12 @@ class ArchConfig:
             total += enc + dec_x; active += enc + dec_x
         return {"total": total, "active": active}
 
+
+_NESTED = {"mla": MLAConfig, "moe": MoEConfig, "ssm": SSMConfig}
+_TUPLES = ("hybrid_pattern", "mrope_sections")
+# the port's own fields and their neutral values (the JAX package has none)
+PORT_ONLY_FIELDS = {"embedding_multiplier": 1.0, "attention_multiplier": 0.0,
+                    "residual_multiplier": 1.0, "logits_scaling": 1.0}
 
 _REGISTRY: dict = {}
 

@@ -770,6 +770,7 @@ def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    # "none" (sinusoids added to the embeddings) and "nope" rotate nothing
     if cfg.rope_type == "standard":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -780,8 +781,10 @@ def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool = True) -> torch.Tensor:
-    """``kernels.flash_attention``; DTensor q, k, v (a sharded prefill) run
+           causal: bool = True,
+           softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """``kernels.flash_attention`` (``softmax_scale`` as there: None is
+    1/sqrt(hd)); DTensor q, k, v (a sharded prefill) run
     it on their local shards, each rank with its own batch rows and heads
     (the kernel sees whole sequences).  Each mesh dim keeps q's batch or
     heads where it shards them evenly, else takes the heads, else the
@@ -791,7 +794,8 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     v have heads, k and v are repeated to q's heads first (the kernel's
     GQA broadcast, done before the split)."""
     if not isinstance(q, DTensor):
-        return flash_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal,
+                               softmax_scale=softmax_scale)
     mesh = q.device_mesh
     ways = {0: 1, 2: 1}
     uneven = False
@@ -817,7 +821,8 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     local = [t.redistribute(mesh, pl).to_local() for t in (q, k, v)]
     # meta shards (the dry run) have no kernel: the plain version's shapes
     run = flash_attention_plain if local[0].is_meta else flash_attention
-    out = run(*local, causal=causal) if local[0].shape[2] else \
+    out = run(*local, causal=causal, softmax_scale=softmax_scale) \
+        if local[0].shape[2] else \
         torch.empty_like(local[0])          # a rank with no head
     b, s, h, hd = q.shape
     return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False,
@@ -834,12 +839,15 @@ def gqa_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
     package's training attention); the inference forward goes through
     ``kernels.flash_attention``: the CUDA kernel on the card, its plain
     version on the CPU.  The two differ at bf16 by one rounding: the kernel
-    keeps the probabilities in float32 for P.V."""
+    keeps the probabilities in float32 for P.V.  The softmax scale is
+    ``cfg.attn_scale`` (1/sqrt(hd) unless ``attention_multiplier`` sets
+    one)."""
     q, k, v = _project_qkv(p, cfg, x, positions)
     if training:
-        out = attention_core(q, k, v, causal=causal)
+        out = attention_core(q, k, v, causal=causal,
+                             softmax_scale=cfg.attn_scale)
     else:
-        out = _flash(q, k, v, causal=causal)
+        out = _flash(q, k, v, causal=causal, softmax_scale=cfg.attn_scale)
     return einsum_f32("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
 
 
@@ -864,10 +872,11 @@ def gqa_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     if isinstance(k, DTensor):
         sh, (k, v), i = sharded_decode_write([k, v], [k_new, v_new], idx)
         out = sh.wrap(sh.attention(local_rows(q, sh), k, v, causal=True,
-                                   q_offset=i))
+                                   q_offset=i, softmax_scale=cfg.attn_scale))
     else:
         decode_write([k, v], [k_new, v_new], idx)
-        out = attention_core(q, k, v, causal=True, q_offset=idx)
+        out = attention_core(q, k, v, causal=True, q_offset=idx,
+                             softmax_scale=cfg.attn_scale)
     y = einsum_f32("bshk,hkd->bsd", out, p["wo"]).to(x.dtype)
     idx.add_(1)
     return y, cache

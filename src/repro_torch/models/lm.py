@@ -17,7 +17,11 @@ config describes; the encoder-decoder (a causal encoder over precomputed
 frame embeddings, as in the JAX package, and cross-attention in every
 decoder layer); precomputed input embeddings (the stubbed frontends);
 the MTP block's t+2 logits in training; RMSNorm and the tied or untied
-unembed.
+unembed.  Granite 4.0's four scalars (``ArchConfig.embedding_multiplier``,
+``attention_multiplier``, ``residual_multiplier``, ``logits_scaling``)
+scale the embedding, the softmax, each sublayer's output before its
+residual add and the logits; at their neutral values no operation is
+added, so every other architecture runs exactly the operations it ran.
 
 Serving: :func:`forward` with ``training=False`` (the default, as in the
 JAX package) is the prefill, whose attention goes through the flash
@@ -223,6 +227,14 @@ def _add_positions(cfg: ArchConfig, x: torch.Tensor,
     return (x.float() + _sinusoidal_embed(positions, x.shape[-1])).to(x.dtype)
 
 
+def _residual(cfg: ArchConfig, x: torch.Tensor, y: torch.Tensor
+              ) -> torch.Tensor:
+    """``x + residual_multiplier * y`` (the sublayer output ``y`` scaled in
+    its own dtype, as Granite does); ``x + y`` at the neutral 1."""
+    m = cfg.residual_multiplier
+    return x + y if m == 1 else x + y * m
+
+
 def _apply_layer(p: dict, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor,
                  positions: torch.Tensor, *,
                  enc_out: Optional[torch.Tensor] = None,
@@ -239,21 +251,23 @@ def _apply_layer(p: dict, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor,
     if spec.kind == "attn":
         attn = layers.mla_forward if cfg.mla is not None \
             else layers.gqa_forward
-        x = x + attn(p["attn"], cfg, h, positions, training=training)
+        x = _residual(cfg, x, attn(p["attn"], cfg, h, positions,
+                                   training=training))
     else:
-        x = x + mamba.ssm_forward(p["ssm"], cfg, h)
+        x = _residual(cfg, x, mamba.ssm_forward(p["ssm"], cfg, h))
     if spec.cross:
         h = layers.rmsnorm(p["cross_norm"], x, cfg.norm_eps)
-        x = x + layers.cross_attn_forward(p["cross"], cfg, h, enc_out)
+        x = _residual(cfg, x, layers.cross_attn_forward(p["cross"], cfg, h,
+                                                        enc_out))
     if spec.ffn == "dense":
         h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + layers.mlp_forward(p["mlp"], h)
+        x = _residual(cfg, x, layers.mlp_forward(p["mlp"], h))
     elif spec.ffn == "moe":
         h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
         y = moe_lib.moe_forward(p["moe"], cfg, h, routes)
         aux = moe_lib.aux_load_balance_loss(
             p["moe"]["router"], h.reshape(-1, h.shape[-1]), cfg.moe)
-        x = x + y
+        x = _residual(cfg, x, y)
     return x, aux
 
 
@@ -341,10 +355,14 @@ def embed_inputs(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
     precomputed embeddings) cast to the config's dtype.  DTensor tokens
     give embeddings on their batch placements (``layers.embed_lookup``),
     as precomputed ``embeds`` arrive, so every later op runs on a rank's
-    share of the batch."""
+    share of the batch.  Either is scaled by ``embedding_multiplier``
+    where it is not 1."""
     if "embeds" in batch:
-        return batch["embeds"].to(torch_dtype(cfg.dtype))
-    return layers.embed_lookup(params["embed"], batch["tokens"])
+        x = batch["embeds"].to(torch_dtype(cfg.dtype))
+    else:
+        x = layers.embed_lookup(params["embed"], batch["tokens"])
+    m = cfg.embedding_multiplier
+    return x if m == 1 else x * m
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *,
@@ -406,9 +424,13 @@ def encode(cfg: ArchConfig, params: dict, batch: dict, *,
 
 
 def unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Float32 logits, divided by ``logits_scaling`` where it is not 1."""
     if cfg.tie_embeddings or "lm_head" not in params:
-        return layers.einsum_f32("bsd,vd->bsv", x, params["embed"])
-    return layers.einsum_f32("bsd,dv->bsv", x, params["lm_head"])
+        logits = layers.einsum_f32("bsd,vd->bsv", x, params["embed"])
+    else:
+        logits = layers.einsum_f32("bsd,dv->bsv", x, params["lm_head"])
+    s = cfg.logits_scaling
+    return logits if s == 1 else logits / s
 
 
 def _mtp_logits(cfg: ArchConfig, params: dict, h_final: torch.Tensor,
@@ -477,16 +499,17 @@ def _decode_layer(p: dict, c: dict, cfg: ArchConfig, spec: LayerSpec,
         y, _ = dec(p["attn"], cfg, h, c["attn"], positions)
     else:
         y, _ = mamba.ssm_decode(p["ssm"], cfg, h, c["ssm"])
-    x = x + y
+    x = _residual(cfg, x, y)
     if spec.cross:
         h = layers.rmsnorm(p["cross_norm"], x, cfg.norm_eps)
-        x = x + layers.cross_attn_forward(p["cross"], cfg, h, enc_out)
+        x = _residual(cfg, x, layers.cross_attn_forward(p["cross"], cfg, h,
+                                                        enc_out))
     if spec.ffn == "dense":
         h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + layers.mlp_forward(p["mlp"], h)
+        x = _residual(cfg, x, layers.mlp_forward(p["mlp"], h))
     elif spec.ffn == "moe":
         h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + moe_lib.moe_forward(p["moe"], cfg, h, routes)
+        x = _residual(cfg, x, moe_lib.moe_forward(p["moe"], cfg, h, routes))
     return x
 
 

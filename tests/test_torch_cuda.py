@@ -584,6 +584,21 @@ def test_flash_kernel_head_dim_256_and_long_ragged(dev, dtype):
         assert _flash_routes()[route] == routes[route] + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_a_softmax_scale(dev, dtype):
+    """Granite's attention scale (1/128 at head dim 128, not 1/sqrt(128))
+    reaches the kernel on both routes, as the plain version applies it."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = _qkv(2, 77, 8, 2, 128, dtype, dev, seed=128)
+    routes = _flash_routes()
+    got = flash_attention(q, k, v, softmax_scale=1 / 128)
+    _flash_close(got, flash_attention_plain(q, k, v, softmax_scale=1 / 128))
+    assert _flash_routes()[_route_of(dtype)] == routes[_route_of(dtype)] + 1
+    assert not torch.allclose(got.float(), flash_attention_plain(q, k, v)
+                              .float(), atol=1e-2)
+
+
 def test_flash_kernel_reads_strided_inputs_in_place(dev):
     """q, k and v sliced out of one fused projection, a head-major layout
     seen through a transpose, and a dim stride of 2: read through their

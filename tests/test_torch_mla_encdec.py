@@ -185,9 +185,11 @@ def test_mla_prefill_pads_v_to_the_flash_contract(monkeypatch):
     seen = []
     real = tl.flash_attention
 
-    def spy(q, k, v, causal=True):
-        out = real(q, k, v, causal=causal)
+    def spy(q, k, v, causal=True, softmax_scale=None):
+        out = real(q, k, v, causal=causal, softmax_scale=softmax_scale)
         seen.append((q.shape, k.shape, v.shape, causal, out))
+        # no scale of its own: the kernel's 1/sqrt(hd), MLA's
+        assert softmax_scale is None
         return out
     monkeypatch.setattr(tl, "flash_attention", spy)
     x = torch.from_numpy(_x((2, 6, tc.d_model), 7))

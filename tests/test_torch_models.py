@@ -114,19 +114,30 @@ def _positions(cfg, b, s, seed=0):
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_configs_are_the_jax_packages(arch):
+    """Every field the JAX package has is equal; each field the port has of
+    its own (Granite's multipliers) sits at its neutral default."""
+    from repro_torch.models.config import PORT_ONLY_FIELDS
     for jc, tc in ((jget(arch), tget(arch)), _cfgs(arch)):
-        assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+        jd, td = dataclasses.asdict(jc), dataclasses.asdict(tc)
+        assert set(td) == set(jd) | set(PORT_ONLY_FIELDS)
+        assert jd == {k: td[k] for k in jd}
+        assert {k: td[k] for k in PORT_ONLY_FIELDS} == PORT_ONLY_FIELDS
+        assert tc.attn_scale is None
         assert jc.padded_vocab == tc.padded_vocab
         assert jc.param_counts() == tc.param_counts()
 
 
 def test_arch_ids_are_the_jax_packages():
     """Every architecture of the JAX package is registered in the port, in
-    the JAX package's order, and nothing else."""
+    the JAX package's order; besides them the port registers its own
+    (``PORT_ONLY_IDS``), which the JAX package lacks, and nothing else."""
     from repro.configs import ARCH_IDS as JAX_IDS
-    from repro_torch.configs import ARCH_IDS
+    from repro.models.config import list_configs as jax_list
+    from repro_torch.configs import ARCH_IDS, PORT_ONLY_IDS
     from repro_torch.models.config import list_configs
-    assert ARCH_IDS == JAX_IDS and sorted(ARCH_IDS) == list_configs()
+    assert ARCH_IDS == JAX_IDS
+    assert list_configs() == sorted(ARCH_IDS + PORT_ONLY_IDS)
+    assert not set(PORT_ONLY_IDS) & set(jax_list())
     assert sorted(ALL_ARCHS) == sorted(ARCH_IDS)
 
 

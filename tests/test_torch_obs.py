@@ -2,8 +2,9 @@
 
 - A traced commit records, inside its ``serialize`` span, one ``d2h``,
   one ``chunk_keys`` and one ``enqueue`` span a co-variable, on the full
-  path and on the dirty-range path; ``meta_docs`` (the commit, refcount
-  and HEAD documents) nests in ``commit`` and ends before ``publish``.
+  path inside a ``write_whole`` span and on the dirty-range path inside a
+  ``write_delta`` span; ``meta_docs`` (the commit, refcount and HEAD
+  documents) nests in ``commit`` and ends before ``publish``.
 - A checkout that loads a leaf in full records ``stage_h2d`` inside
   ``materialize``.
 - With tracing off no span is recorded and every site gets the shared
@@ -78,11 +79,19 @@ def test_write_spans_nest_in_serialize(path):
     spans = list(s.obs.tracer.spans)
     by_id = {r.span_id: r for r in spans}
     (ser,) = _by_name(spans, "serialize")
+    # the first commit declines nothing (no parent manifest) yet still
+    # opens write_delta around the attempt; the poke's attempt is taken
+    (delta,) = _by_name(spans, "write_delta")
+    whole = _by_name(spans, "write_whole")
+    assert delta.parent_id == ser.span_id and _inside(delta, ser)
+    assert len(whole) == (path == "full")
+    (outer,) = whole or [delta]
+    assert outer.parent_id == ser.span_id and _inside(outer, ser)
     for name in WRITE:
         recs = _by_name(spans, name)
         assert len(recs) == 1, (name, len(recs))     # one a co-variable
-        assert recs[0].parent_id == ser.span_id, name
-        assert _inside(recs[0], ser), name
+        assert recs[0].parent_id == outer.span_id, name
+        assert _inside(recs[0], outer), name
     s.close()
 
 

@@ -249,9 +249,11 @@ def test_session_counts_streamed_covs_and_bytes():
     assert reg.counter_total("kishu_bytes_streamed_total") == 20024
     spans = list(sess.obs.tracer.spans)
     ser = {s.span_id for s in spans if s.name == "serialize"}
+    whole = {s.span_id for s in spans
+             if s.name == "write_whole" and s.parent_id in ser}
     for name in ("d2h", "chunk_keys", "enqueue"):
         mine = [s for s in spans if s.name == name]
-        assert mine and all(s.parent_id in ser for s in mine), name
+        assert mine and all(s.parent_id in whole for s in mine), name
     sess.close()
 
 
