@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root; one card, nvcc
 
-Phase 0  builds the six CUDA kernels from ``src/repro_torch/csrc`` (one
+Phase 0  builds the seven CUDA kernels from ``src/repro_torch/csrc`` (one
          nvcc per source, all started together) and prints the card's name
          and power limit.
 Phase 1  holds every kernel against its plain torch version on the card at
@@ -30,7 +30,11 @@ Phase 1  holds every kernel against its plain torch version on the card at
          delta_pack (scan + gather), delta_codec and block_diff through
          their C entries, since their wrappers read a count or masks
          back.  delta_codec is also timed on random words, whose planes
-         are all stored.
+         are all stored.  chunk_key (the store's BLAKE2b-128 chunk keys)
+         is held against hashlib and timed at 612 and 1,200 chunks of 1
+         MiB (Mamba-2's and Granite-4.0-H-Small's streamed state) beside
+         hashlib on the pool's threads over the same bytes, its bound by
+         operations and the time of one chain of compressions.
 Phase 2  the main path: a ``KishuSession`` on a ``dir://`` store commits a
          SmolLM-360M-shaped fine-tuning state (fp32 params + AdamW m and v,
          870 tensors, 4.34 GB, random from a seeded CUDA generator), runs an
@@ -201,7 +205,8 @@ repository, it exits non-zero before printing any result.
 
 runs only the named phases (2, 6, the serving phases 5, 7, 7b, 7c,
 7d and 9, the distribution phase 8 and the training phase 10, each on a
-store of its own), taken from the ``chip_smoke.py`` and
+store of its own, and Phase 1's chunk_key row, ``phase1_chunk_key``),
+taken from the ``chip_smoke.py`` and
 ``src/`` under ``DIR`` (default: this tree), and prints one line each of
 wall times, decode ms a step and peak memory.  Two trees are compared by calling it in turns with each tree's
 root.
@@ -235,6 +240,17 @@ HASH_OPS_PER_WORD = 18               # kernel's integer ops per hashed word
 # (6 ops per swapped pair of words), plus an OR and an AND per plane word
 # to classify planes as zero or ones
 CODEC_OPS_PER_WORD = 5 * 3 + 2
+# the chunk_key kernel's 32-bit ALU instructions a BLAKE2b compression: 12
+# rounds of 8 G functions of 22 each (an add and its carry a 64-bit add, an
+# xor a half, two funnel shifts a rotation), and the 16 of the feed-forward
+KEY_OPS_PER_BLOCK = 12 * 8 * 22 + 16
+# an SM sub-partition has 16 INT32 lanes, so a warp's ALU instruction holds
+# them two cycles: one chain's least time is its instructions x 2 / clock
+ALU_CYCLES_PER_WARP_OP = 2
+SM_CLOCK_HZ = 1.98e9
+# chunks of 1 MiB the streamed whole writes of the benchmark's cells key:
+# Mamba-2 780M's state, Granite-4.0-H-Small's state and conv (about)
+KEY_CHUNKS = (612, 1200)
 # the buffer device_ms writes before each call of a cold-L2 time: over
 # twice the H100's 50 MB L2
 L2_FLUSH_BYTES = 128 << 20
@@ -246,11 +262,12 @@ N_LAYERS, D_MODEL, N_HEADS, N_KV, HEAD_DIM, D_FF, VOCAB = \
 TOP_LAYERS = range(28, 32)           # finetune_top updates these
 # kernels each path must launch: the commit -> checkout loop of Phase 2,
 # and the trainer of Phase 4, whose dense steps dirty every chunk (so its
-# commits take the full path, no codec) and whose checkouts load in full
-# (no scatter)
+# commits take the full path, no codec, streamed and keyed on the card)
+# and whose checkouts load in full (no scatter)
 COMMIT_PATH_KERNELS = ("chunk_hash", "delta_pack", "delta_codec",
-                       "patch_scatter")
-TRAINER_PATH_KERNELS = ("chunk_hash", "delta_pack", "block_diff")
+                       "patch_scatter", "chunk_key")
+TRAINER_PATH_KERNELS = ("chunk_hash", "delta_pack", "block_diff",
+                        "chunk_key")
 # reinit_vocab_slice runs on two slices of 4915 rows: one that starts on a
 # 4 MiB boundary (row 32768 = 120 MiB), whose zeroed moments the sampled
 # codec probe accepts, and one that starts mid-chunk (row 40000), where the
@@ -270,7 +287,7 @@ SERVE_PATH_KERNELS = ("flash_attention", "chunk_hash", "delta_pack",
 # differs), so patch_scatter launches only if one patches
 SSM_BATCH, SSM_PROMPT, SSM_GEN = 8, 512, 64
 SSM_CHUNK = 1 << 20
-SSM_PATH_KERNELS = ("chunk_hash", "delta_pack", "block_diff")
+SSM_PATH_KERNELS = ("chunk_hash", "delta_pack", "block_diff", "chunk_key")
 # Cell F (Phase 7b): phi3.5-moe-42b-a6.6b at full width, depth cut to 2
 # of 32 layers (each layer's 16 experts are 2.52 GB in bf16)
 MOE_LAYERS = 2
@@ -331,13 +348,14 @@ PHASE9_LIMIT_S = 120.0
 TRAIN_MOE_LAYERS, TRAIN_VLM_LAYERS = 1, 1
 TRAIN_BATCH, TRAIN_SEQ = DIST_BATCH, DIST_SEQ
 TRAIN_PATH_KERNELS = ("chunk_hash", "delta_pack", "patch_scatter",
-                      "block_diff")
+                      "block_diff", "chunk_key")
 # about 230 s on an H100 80GB HBM3 at 700 W: the dense commits of 15.6 GB
 # of DTensor state and 20.2 GB of plain state take most of it
 PHASE10_LIMIT_S = 300.0
 # the phases ``--only`` runs alone: each takes (torch, dev, workdir)
 TIMED_PHASES = ("phase2", "phase6", "phase5", "phase7", "phase7b",
-                "phase7c", "phase7d", "phase8", "phase9", "phase10")
+                "phase7c", "phase7d", "phase8", "phase9", "phase10",
+                "phase1_chunk_key")
 
 
 def fail(msg: str) -> None:
@@ -836,6 +854,77 @@ def flash_cases(torch) -> list:
             ("stablelm_hd_160", 8, 512, 32, 8, 160, bf, True, 160),
             ("phase9_sharded_prefill", SHARD_BATCH, SHARD_PROMPT, hq, hkv,
              HEAD_DIM, bf, True, HEAD_DIM)]
+
+
+def phase1_chunk_key(torch, dev, workdir=None) -> dict:
+    """The chunk_key kernel against hashlib (``chunkstore.chunk_keys``, on
+    the pool's threads) at each of KEY_CHUNKS chunks of 1 MiB, the last
+    ragged: device time of the C entry warm and cold, the wrapper's host
+    loop (with its read-back), hashlib's time over the same bytes on the
+    host, the bound by operations and one chain's least time."""
+    from repro_torch.core.chunkstore import chunk_keys
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.chunk_key.ops import (chunk_key_digests,
+                                                   hex_keys)
+    g = torch.Generator(device=dev).manual_seed(3)
+    tail = 12345                         # the last chunk's bytes short
+    u8 = torch.randint(0, 256, (max(KEY_CHUNKS) * CB - tail,), device=dev,
+                       dtype=torch.uint8, generator=g)
+    host = u8.cpu().numpy().tobytes()
+    view = memoryview(host)
+    sizes = {}
+    for n in KEY_CHUNKS:
+        x = u8[:n * CB - tail]
+        nbytes = x.numel()
+        before = _lib.launches()["chunk_key"]
+        got = hex_keys(chunk_key_digests(x, CB))
+        check(_lib.launches()["chunk_key"] == before + 1,
+              "chunk_key: the wrapper did not launch once")
+        chunks = [view[i * CB:min((i + 1) * CB, nbytes)] for i in range(n)]
+        plain = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            want = chunk_keys(chunks)
+            plain.append((time.perf_counter() - t0) * 1e3)
+        bad = sum(a != b for a, b in zip(got, want))
+        check(bad == 0 and len(got) == n,
+              f"chunk_key != hashlib in {bad} of {n} chunks")
+        idx = torch.arange(n, dtype=torch.int64, device=dev)
+        out = torch.empty((n, 16), dtype=torch.uint8, device=dev)
+
+        def key_raw(x=x, idx=idx, out=out, n=n):
+            _lib.call("kishu_chunk_key", x.data_ptr(), x.numel(), CB,
+                      idx.data_ptr(), n, out.data_ptr(), _lib.stream_of(x))
+        dev_t = device_ms(torch, {"kernel": key_raw}, 3, rounds=3,
+                          cold=True)
+        check(hex_keys(out.cpu().numpy()) == want,
+              "chunk_key's C entry != hashlib after the timed replays")
+        blocks = sum(-(-len(c) // 128) for c in chunks)
+        b_ms, b_by = bound(nbytes + 24 * n, blocks * KEY_OPS_PER_BLOCK)
+        sizes[n] = {
+            "ms": dev_t["kernel"]["median"],
+            "cold_ms": dev_t["kernel"]["cold"]["median"],
+            "device": dev_t,
+            "host_ms": time_ms(torch, lambda x=x: chunk_key_digests(x, CB),
+                               3),
+            "plain_ms": min(plain), "plain_samples": plain,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "chain_ms": CB // 128 * KEY_OPS_PER_BLOCK
+            * ALU_CYCLES_PER_WARP_OP / SM_CLOCK_HZ * 1e3,
+            "shape": f"{n} chunks of 1 MiB, the last {CB - tail} bytes"}
+        r = sizes[n]
+        print(f"phase1 chunk_key: equals hashlib; {r['shape']}; kernel "
+              f"device {spread(r['device']['kernel'])}, host loop "
+              f"{r['host_ms']:.4f} ms; hashlib on the pool "
+              f"{r['plain_ms']:.3f} ms; bound {b_ms:.4f} ms ({b_by}); one "
+              f"chain {r['chain_ms']:.3f} ms", flush=True)
+    del u8, host, view
+    first = sizes[KEY_CHUNKS[0]]
+    return {"name": "chunk_key", "route": "cuda",
+            "source": "src/repro_torch/csrc/chunk_key.cu",
+            "replaces": None, "max_abs_err": 0,
+            "library_ms": None, **first,
+            "sizes": {str(n): r for n, r in sizes.items()}}
 
 
 def phase1_flash(torch, dev) -> dict:
@@ -3479,6 +3568,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = phase1(torch, dev)
     kernels.append(phase1_flash(torch, dev))
+    kernels.append(phase1_chunk_key(torch, dev))
     record["phase1_s"] = time.perf_counter() - t0
     free_card(torch)
     workdir = Path(tempfile.mkdtemp(prefix="kishu_smoke_"))

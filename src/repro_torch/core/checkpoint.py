@@ -55,6 +55,8 @@ class WriteStats:
     covs_streamed: int = 0          # covs written whole through the
                                     # writer's staging ring (CUDA bases)
     bytes_streamed: int = 0         # their bytes
+    chunks_keyed_dev: int = 0       # their chunks keyed by the ring's
+                                    # device (a card: the chunk_key kernel)
     unserializable: int = 0
     wall_s: float = 0.0
 
@@ -208,8 +210,9 @@ def build_manifest(store: ChunkStore, key: CovKey,
     ``delta_ranges=False`` disables the dirty-range fast path (benchmark
     baseline — the pre-delta cov-granular writer).  A base that ``ring``
     takes (the writer's ring takes CUDA tensors) and that the dirty-range
-    path declines streams through the ring, its chunks keyed and handed
-    off segment by segment; any other leaf is serialized whole first.  The
+    path declines streams through the ring, its chunks keyed (a CUDA
+    base's by the card) and handed off segment by segment; any other leaf
+    is serialized whole first.  The
     chunks and the manifest are the same either way.  Each path records
     ``d2h`` spans (the bytes off the card), ``chunk_keys`` spans and
     ``enqueue`` spans (the hand-off to the writer): one of each a
@@ -308,7 +311,8 @@ def _whole_manifest(base, det_hex: List[str], members: List[dict],
     if streamed:
         stats.covs_streamed += 1
         stats.bytes_streamed += n
-        ring.stream(u8, chunk_bytes, [c is None for c in chunks], hand_off)
+        stats.chunks_keyed_dev += ring.stream(
+            u8, chunk_bytes, [c is None for c in chunks], hand_off)
     else:
         # keys of the chunks to write, hashed on the pool over views of
         # the blob
@@ -520,7 +524,10 @@ class CheckpointWriter:
         t0 = time.perf_counter()
         stats = WriteStats()
         manifests: Dict[str, dict] = {}
-        with self._span("serialize", covs=len(delta.updated)):
+        # a streamed base's keys may land after the next base has streamed
+        # (StagingRing.deferred); every manifest is whole once it closes
+        with self._span("serialize", covs=len(delta.updated)), \
+                self.ring.deferred():
             for key, records in delta.updated.items():
                 man = build_manifest(self.store, key, records, ns,
                                      self.chunk_bytes, prev_manifest_of(key),
@@ -535,6 +542,8 @@ class CheckpointWriter:
             reg.counter("kishu_covs_streamed_total").inc(stats.covs_streamed)
             reg.counter("kishu_bytes_streamed_total").inc(
                 stats.bytes_streamed)
+            reg.counter("kishu_chunks_keyed_on_device_total").inc(
+                stats.chunks_keyed_dev)
         self._flush_batch()                  # sync mode: durable on return
         if self.async_write and self.write_deadline_s:
             # monotonic, never wall-clock: an NTP step would expire this

@@ -10,6 +10,8 @@ its plain PyTorch version beside it in the same module.
                       restored and committed state, ``delta.exact_dirty_indices``).
 - ``flash_attention`` — tiled GQA softmax attention, forward only (the
                       prefill's attention, ``models.layers.gqa_forward``).
+- ``chunk_key``     — the chunk store's BLAKE2b-128 keys of a base streamed
+                      off the card whole (``core.staging``).
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and runs the
 plain version for a CPU tensor.  Nothing here builds or imports CUDA code

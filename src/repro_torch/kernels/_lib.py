@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("chunk_hash", "delta_pack", "delta_codec", "patch_scatter",
-           "block_diff", "flash_attention")
+           "block_diff", "flash_attention", "chunk_key")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -47,6 +47,8 @@ _SIGNATURES: Dict[str, Tuple[str, List]] = {
     "kishu_patch_scatter": ("patch_scatter",
                             [_P, _LL, _LL, _I, _P, _LL, _P, _P]),
     "kishu_block_diff": ("block_diff", [_P, _P, _LL, _LL, _I, _P, _P]),
+    # data, nbytes, chunk_bytes, idx, n_idx, out
+    "kishu_chunk_key": ("chunk_key", [_P, _LL, _LL, _P, _LL, _P, _P]),
     # q, k, v, o; B, S, Hq, Hkv, hd, dtype, causal; scale; 4 x 4 strides
     "kishu_flash_attention": ("flash_attention",
                               [_P] * 4 + [_I] * 7 + [_F] + [_LL] * 16

@@ -407,6 +407,146 @@ def test_full_commit_streams_through_the_pinned_ring(dev):
     sess.close()
 
 
+KEY_LENGTHS = [1, 3, 127, 128, 129, 255, 256, 1 << 14, (1 << 20) - 4,
+               1 << 20, (1 << 20) + 1]
+
+
+def _gappy(n_chunks):
+    """Every chunk but each third from the second, the last always."""
+    return [i % 3 != 1 or i == n_chunks - 1 for i in range(n_chunks)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_chunk_key_kernel_equals_hashlib(dev, offset):
+    """The kernel's digests are hashlib's BLAKE2b-128, byte for byte: every
+    length of the CPU test at 16 KiB and 1 MiB chunks (and at 3000, which
+    is no multiple of 16), on an aligned and an unaligned base, with a mask
+    with gaps; and 1,000 chunks of 4 KiB (32 blocks of chains) under a
+    random mask.  One launch a call."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.chunk_key.ops import chunk_key_digests
+    rng = np.random.default_rng(offset)
+    cases = [(n, cb, None) for n in KEY_LENGTHS
+             for cb in (1 << 14, 1 << 20, 3000)]
+    cases.append((1000 * 4096 - 7, 4096, rng.random(1000) < 0.6))
+    for n, cb, mask in cases:
+        raw = rng.integers(0, 256, n + offset, dtype=np.uint8)
+        u8 = torch.from_numpy(raw).to(dev)[offset:]
+        data = raw[offset:].tobytes()
+        n_chunks = -(-n // cb)
+        want = _gappy(n_chunks) if mask is None else list(mask)
+        before = _lib.launches()["chunk_key"]
+        got = chunk_key_digests(u8, cb, want)
+        assert _lib.launches()["chunk_key"] == before + (any(want))
+        expect = [hashlib.blake2b(data[i * cb:(i + 1) * cb],
+                                  digest_size=16).digest()
+                  for i in range(n_chunks) if want[i]]
+        assert [row.tobytes() for row in got] == expect, (n, cb)
+
+
+def test_streamed_commit_is_keyed_on_the_card(dev):
+    """A bf16 base of 612 chunks of 1 MiB (the last ragged), written whole,
+    streams through the pinned ring with its keys from one launch: every
+    manifest key is ``chunk_key`` of the bytes the store holds, and the
+    manifest and the chunks equal the blob path's.  Then every fifth
+    chunk changes and a whole write against the first manifest keys only
+    those (``want`` with gaps across the ring's segments).  In a session,
+    the registry counts the chunks the card keyed."""
+    from repro_torch.core import KishuSession, MemoryStore, staging
+    from repro_torch.core.checkpoint import WriteStats, build_manifest
+    from repro_torch.core.chunkstore import chunk_key
+    from repro_torch.core.covariable import RecordBuilder
+    from repro_torch.core.namespace import Namespace
+    from repro_torch.kernels import _lib
+
+    cb = 1 << 20
+    n = (612 * cb - 1000) // 2
+    vals = torch.randn(n, generator=torch.Generator().manual_seed(3)) \
+        .to(torch.bfloat16)
+    edited = vals.clone()
+    edited[::5 * cb // 2] += 1.0
+    ring = staging.StagingRing()
+    prev = {"cpu": None, "cuda": None}
+    for step, src in enumerate((vals, edited)):
+        out = {}
+        for where in ("cpu", "cuda"):
+            x = src.to(where)
+            store, stats = MemoryStore(), WriteStats()
+            before = _lib.launches()["chunk_key"]
+            man = build_manifest(store, ("x",),
+                                 [RecordBuilder(cb).build("x", x, {})],
+                                 Namespace({"x": x}), cb, prev[where],
+                                 stats, store.put_chunk, delta_ranges=False,
+                                 ring=ring if where == "cuda" else None)
+            out[where] = (man, store.chunks, stats,
+                          _lib.launches()["chunk_key"] - before)
+            prev[where] = man
+        (m0, c0, s0, l0), (m1, c1, s1, l1) = out["cpu"], out["cuda"]
+        assert m1 == m0 and c1 == c0
+        fresh = 612 if step == 0 else 123
+        assert (s1.chunks_keyed_dev, l1) == (fresh, 1)
+        assert (s0.chunks_keyed_dev, l0) == (0, 0)
+        assert s1.chunks_written + s1.chunks_dedup == fresh
+        for c in m1["base"]["chunks"]:
+            if c["key"] in c1:
+                assert c["key"] == chunk_key(c1[c["key"]])
+
+    sess = KishuSession(MemoryStore(), chunk_bytes=cb, cache_bytes=0)
+    x = vals.to(dev)
+
+    def init(ns):
+        ns["x"] = x.clone()
+
+    sess.register("init", init)
+    sess.init_state({})
+    sess.run("init")
+    assert sess.last_run.write.chunks_keyed_dev == 612
+    assert sess.obs.registry.counter_total(
+        "kishu_chunks_keyed_on_device_total") == 612
+    sess.close()
+
+
+def test_a_commits_small_bases_are_keyed_side_by_side(dev):
+    """A commit of nine 2-chunk CUDA leaves and one of 40 chunks: each
+    small base is parked while the next streams, so their launches take
+    key streams of their own; the stored chunks equal those of the same
+    values committed as CPU tensors, and the leaves, overwritten on the
+    current stream straight after the commit, were keyed as committed."""
+    from repro_torch.core import KishuSession, MemoryStore
+
+    cb = 1 << 20
+    g = torch.Generator().manual_seed(11)
+    vals = [torch.randint(0, 256, (n,), dtype=torch.uint8, generator=g)
+            for n in [2 * cb - 17] * 9 + [40 * cb]]
+    stores = []
+    for where in ("cpu", dev):
+        sess = KishuSession(MemoryStore(), chunk_bytes=cb, cache_bytes=0,
+                            device="cpu" if where == "cpu" else "cuda")
+        xs = [v.to(where) for v in vals]
+
+        def init(ns, xs=xs):
+            for k, x in enumerate(xs):
+                ns[f"v{k}"] = x.clone()
+
+        sess.register("init", init)
+        sess.init_state({})
+        sess.run("init")
+        for k in range(len(vals)):
+            sess.ns[f"v{k}"].fill_(7)
+        torch.cuda.synchronize()
+        stores.append((sess.store.chunks, sess.last_run.write))
+        ring = sess.writer.ring
+        sess.close()
+    (c0, w0), (c1, w1) = stores
+    assert c1 == c0 and w1.chunks_keyed_dev == 9 * 2 + 40
+    assert w1.covs_streamed == 10 and w0.covs_streamed == 0
+    assert sum(len(p) for p in ring._key_streams.values()) >= 2
+
+
 # ---------------------------------------------------------------------------
 # block_diff and the trainer on the card
 # ---------------------------------------------------------------------------

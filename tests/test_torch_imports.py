@@ -51,6 +51,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "import repro_torch.kernels.patch_scatter.ops\n"
             "import repro_torch.kernels.block_diff.ops\n"
             "import repro_torch.kernels.flash_attention.ops\n"
+            "import repro_torch.kernels.chunk_key.ops\n"
             "import repro_torch.train.loop, repro_torch.launch.train\n"
             "import repro_torch.launch.serve, repro_torch.models.lm\n"
             "import repro_torch.core.planner, repro_torch.core.fabric\n"
@@ -92,7 +93,7 @@ def test_kernel_modules_build_nothing_at_import(tmp_path, monkeypatch):
     from repro_torch.kernels import _lib
     assert set(_lib.KERNELS) == {"chunk_hash", "delta_pack", "delta_codec",
                                  "patch_scatter", "block_diff",
-                                 "flash_attention"}
+                                 "flash_attention", "chunk_key"}
     assert {lib for lib, _ in _lib._SIGNATURES.values()} == set(_lib.KERNELS)
     for name in _lib.KERNELS:
         assert (_lib.CSRC / f"{name}.cu").is_file()
